@@ -1,5 +1,5 @@
-"""Worker for the PRODUCTION-DRIVER multi-controller test (VERDICT r4
-missing #3): each process runs the real CLI entry point —
+"""Worker for the PRODUCTION-DRIVER multi-controller test: each process
+runs the real CLI entry point —
 ``python -m wxfactory_tpu config.ini --coordinator ... --num-processes N
 --process-id I`` — so rank-gated output, blockstats-under-sharding and the
 distributed checkpoint/restart all flow through `Simulation`/`OutputManager`

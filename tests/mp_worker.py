@@ -1,7 +1,7 @@
 """Worker for the multi-controller (multi-host) tests.
 
 Launched N times by tests/test_multiprocess.py (subprocess per controller,
-CPU backend with 4 virtual devices each — the TPU-native analogue of the
+CPU backend with 4 virtual devices each — the JAX analogue of the
 reference's `mpirun -n` test harness, tests/unit/mpi_test.py there). Each
 worker joins the jax.distributed world, runs a sharded EPI2+kiops_jit
 trajectory over a mesh spanning BOTH processes' devices, and exercises the

@@ -145,9 +145,8 @@ def test_epi2_kiops_steps_match_reference(mine31):
 
 
 def test_epi2_kiops_jit_mixed_precision_matches_reference(mine31):
-    """Mixed-precision device-resident exponential stepping (VERDICT r2 item
-    3): KIOPS Arnoldi matvec through the f32 perturbation-form jvp, f64
-    controller/basis. The 2-step dcmip31 trajectory must stay within the
+    """Mixed-precision device-resident exponential stepping: KIOPS Arnoldi
+    matvec through the f32 perturbation-form jvp, f64 controller/basis. The 2-step dcmip31 trajectory must stay within the
     same golden tolerances as the full-f64 path."""
     from ref_harness import reference_euler3d_epi_steps
 
@@ -161,7 +160,7 @@ def test_epi2_kiops_jit_mixed_precision_matches_reference(mine31):
     rhs = make_rhs_euler_cubesphere(geom, ops, metric)
     q = jnp.asarray(dcmip_gravity_wave(geom))
     rhs32 = make_rhs_euler_cubesphere(
-        geom, ops, metric, dtype=jnp.float32, interior="xla",
+        geom, ops, metric, dtype=jnp.float32,
         perturbation_base=q.astype(jnp.float64),
     )
     integ = Epi(rhs, order=2, exponential_solver="kiops_jit", tolerance=1e-7,
@@ -174,12 +173,25 @@ def test_epi2_kiops_jit_mixed_precision_matches_reference(mine31):
         assert d < tols[i], (i, d)
 
 
-@pytest.mark.parametrize("n", [1, 2])
-def test_shard_map_euler3d_tiles_match_global(n):
+# float64: the tile step is the same arithmetic as the global step up to
+# reassociation. float32: the momentum of the initial gravity wave is ~1e-3
+# of the density, so one f32 ulp of the density-scale terms is ~6e-5 of the
+# momentum scale; the three momentum rows then share one scale (the
+# vector's), so the near-zero initial rho*w is not judged on its own tiny
+# magnitude.
+@pytest.mark.parametrize("n,nel_h,nel_v,s,dtype,atol", [
+    pytest.param(1, 4, 3, 2, jnp.float64, 1e-12, id="1"),
+    pytest.param(2, 4, 3, 2, jnp.float64, 1e-12, id="2"),
+    pytest.param(1, 2, 3, 3, jnp.float64, 1e-12, id="1-s3"),
+    pytest.param(1, 2, 2, 4, jnp.float64, 1e-12, id="1-s4"),
+    pytest.param(1, 2, 3, 2, jnp.float32, 2e-4, id="1-f32"),
+])
+def test_shard_map_euler3d_tiles_match_global(n, nel_h, nel_v, s, dtype, atol):
     """The 3D Euler shard_map step (one device per tile over a (6, N, N)
     mesh, 4 interior-shift + 4 edge-colored ppermute halo rounds; the tile
     body IS the model core with per-tile metric operands) matches the
-    single-device formulation to machine precision at 6 and 24 devices."""
+    single-device formulation at 6 and 24 devices, in float64 to machine
+    precision and in float32 to its rounding."""
     from jax.sharding import Mesh
 
     from wxfactory_tpu.parallel.shard_map_euler3d import make_shard_map_euler3d_step
@@ -188,11 +200,10 @@ def test_shard_map_euler3d_tiles_match_global(n):
     if len(jax.devices()) < ndev:
         pytest.skip(f"needs >= {ndev} virtual devices")
 
-    nel_h, nel_v, s = 4, 3, 2
     from conftest import cs3d_setup
     geom, ops, _topo, metric = cs3d_setup(nel_h, nel_v, s, 10000.0)
-    q = jnp.asarray(dcmip_gravity_wave(geom))
-    rhs = jax.jit(make_rhs_euler_cubesphere(geom, ops, metric, interior="xla"))
+    q = jnp.asarray(dcmip_gravity_wave(geom), dtype)
+    rhs = jax.jit(make_rhs_euler_cubesphere(geom, ops, metric, dtype=dtype))
     dt = 1.0
 
     def plain(qq):
@@ -203,10 +214,14 @@ def test_shard_map_euler3d_tiles_match_global(n):
     want = np.asarray(plain(plain(q)))
 
     mesh = Mesh(np.array(jax.devices()[:ndev]).reshape(6, n, n), ("panel", "y", "x"))
-    step, sharding = make_shard_map_euler3d_step(geom, ops, metric, mesh, dt)
-    got = np.asarray(step(step(jax.device_put(q, sharding))))
+    step, sharding = make_shard_map_euler3d_step(geom, ops, metric, mesh, dt, dtype=dtype)
+    got = step(step(jax.device_put(q, sharding)))
+    assert got.dtype == dtype
+    got = np.asarray(got)
     scale = np.abs(want).max(axis=(1, 2, 3, 4, 5), keepdims=True)
-    np.testing.assert_allclose(got / scale, want / scale, atol=1e-12)
+    if dtype == jnp.float32:
+        scale[1:4] = scale[1:4].max()
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol)
 
 
 def test_perturbation_form_f32_accuracy():
@@ -222,8 +237,8 @@ def test_perturbation_form_f32_accuracy():
     geom, ops, _topo, metric = cs3d_setup(nel_h, nel_v, s, 10000.0)
     q0 = jnp.asarray(dcmip_gravity_wave(geom))
 
-    rhs64 = jax.jit(make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float64, interior="xla"))
-    pert64 = make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float64, interior="xla",
+    rhs64 = jax.jit(make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float64))
+    pert64 = make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float64,
                                        perturbation_base=q0)
     truth0 = np.asarray(rhs64(q0))
     scale0 = np.abs(truth0).max(axis=(1, 2, 3, 4, 5), keepdims=True)
@@ -236,8 +251,8 @@ def test_perturbation_form_f32_accuracy():
     sp = np.abs(tp).max(axis=(1, 2, 3, 4, 5), keepdims=True)
     assert np.abs((np.asarray(pert64(qp)) - tp) / sp).max() < 1e-11
 
-    rhs32 = jax.jit(make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float32, interior="xla"))
-    pert32 = make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float32, interior="xla",
+    rhs32 = jax.jit(make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float32))
+    pert32 = make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float32,
                                        perturbation_base=q0)
     delta = jax.jit(pert32.delta)
 
@@ -257,45 +272,12 @@ def test_perturbation_form_f32_accuracy():
     assert err_pert < err_abs / 50.0, (err_pert, err_abs)
 
 
-def test_epi2_fused_jtv_matches_xla_jvp_trajectory():
-    """The fused Jacobian-action kernel (rhs32.jtv, the analytically
-    linearized mega kernel) must be a drop-in replacement for the f32
-    XLA-jvp matvec in the device-resident EPI step: the 2-step dcmip31
-    trajectories of the two companions agree to f32 matvec roundoff."""
-    from wxfactory_tpu.integrators import Epi
-
-    nel_h, nel_v, s = 4, 2, 4
-    from conftest import cs3d_setup
-    geom, ops, _topo, metric = cs3d_setup(nel_h, nel_v, s, 10000.0)
-    rhs = make_rhs_euler_cubesphere(geom, ops, metric)
-    q0 = jnp.asarray(dcmip_gravity_wave(geom))
-    rhs32_xla = make_rhs_euler_cubesphere(
-        geom, ops, metric, dtype=jnp.float32, interior="xla", perturbation_base=q0
-    )
-    rhs32_k = make_rhs_euler_cubesphere(
-        geom, ops, metric, dtype=jnp.float32, interior="pallas", perturbation_base=q0
-    )
-    assert hasattr(rhs32_k, "jtv")
-
-    qs = []
-    for rhs32 in (rhs32_xla, rhs32_k):
-        integ = Epi(rhs, order=2, exponential_solver="kiops_jit", tolerance=1e-7,
-                    mmin=16, mmax=64, rhs32=rhs32)
-        q = q0
-        for _ in range(2):
-            q = integ.step(q, 30.0)
-        qs.append(np.asarray(q))
-    scale = np.abs(qs[0]).max(axis=(1, 2, 3, 4, 5), keepdims=True)
-    err = np.abs((qs[1] - qs[0]) / scale).max()
-    assert err < 2e-5, err
-
-
 def test_ros2_mixed_precision_matches_f64_path():
     """Mixed-precision Ros2 (f32 pert-form rational matvec + f32 inner
     FGMRES basis, f64 outer residuals/updates — restarted iterative
     refinement, solvers/fgmres_jit.py) must track the full-f64 device path:
     measured 3-step deviation ~4e-6 of the per-variable scale (1.3e-4 for
-    the near-zero rho*w), 10x the f64 step rate on TPU."""
+    the near-zero rho*w)."""
     from wxfactory_tpu.integrators import Ros2
 
     nel_h, nel_v, dt = 4, 2, 30.0
@@ -304,7 +286,7 @@ def test_ros2_mixed_precision_matches_f64_path():
     rhs = make_rhs_euler_cubesphere(geom, ops, metric)
     q0 = jnp.asarray(dcmip_gravity_wave(geom))
     rhs32 = make_rhs_euler_cubesphere(geom, ops, metric, dtype=jnp.float32,
-                                      interior="xla", perturbation_base=q0)
+                                      perturbation_base=q0)
 
     ros_mixed = Ros2(rhs, tolerance=1e-7, linear_solver="fgmres_jit", rhs32=rhs32)
     ros_f64 = Ros2(rhs, tolerance=1e-7, linear_solver="fgmres_jit")

@@ -42,8 +42,13 @@ output_dir = {outdir}
 
 def test_reference_configs_parse():
     import glob
+    import sys
 
-    paths = sorted(glob.glob("/root/reference/config/*.ini"))
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from ref_harness import REFERENCE_ROOT, require_reference  # noqa: PLC0415
+
+    require_reference()
+    paths = sorted(glob.glob(os.path.join(REFERENCE_ROOT, "config", "*.ini")))
     assert paths, "reference configs missing"
     parsed = 0
     for p in paths:
@@ -268,7 +273,7 @@ def test_fv_agglomeration_multigrid_preconditions_fgmres():
 
 
 def test_multigrid_kiops_smoother_strictly_accelerates_canonical_case5():
-    """STRICT acceleration on a canonical stiff solve (VERDICT r2 weak #2):
+    """STRICT acceleration on a canonical stiff solve:
     the Williamson case-5 rational system (I - dt/2 J) x = dt f(Q) at the
     canonical shape (nel=10, s=3; reference config/case5.ini) with a
     strongly implicit dt, solved by FGMRES alone vs FGMRES preconditioned
@@ -341,7 +346,7 @@ def test_rhs_timing_sampled_in_real_run(tmp_path):
 
 
 def test_device_step_chunk_matches_single_steps(tmp_path):
-    """`device_step_chunk` (TPU-native extension: N steps per device
+    """`device_step_chunk` (extension: N steps per device
     dispatch, simulation.py run loop) must not change the trajectory, must
     still land checkpoints exactly on their configured steps, and must
     store per-chunk solver stats."""

@@ -4,7 +4,7 @@ The real ECCC ``rmn``/``georef`` libraries are proprietary and absent (the
 reference has the same optional dependency, output_cubesphere_fst.py:56);
 the writer's record construction — angle24-encoded IG1-3, packed IG4,
 per-field 64-bit real records — is asserted here through a stand-in that
-records every call (VERDICT r3 Next #9)."""
+records every call."""
 
 import sys
 import types

@@ -121,7 +121,7 @@ def test_epi_steps_device_scan_matches_single_steps(bubble):
 
 def test_ros2_steps_device_scan_matches_single_steps(bubble):
     """Ros2 steps_device (N whole-step FGMRES solves as ONE lax.scan
-    program — VERDICT r4 next #6) must reproduce the repeated-single-step
+    program) must reproduce the repeated-single-step
     trajectory exactly; FGMRES carries no cross-step state so the match is
     bit-for-bit, with the same aggregate iteration count."""
     from wxfactory_tpu.integrators import Ros2

@@ -1,7 +1,7 @@
-"""Multi-controller (multi-host) execution tests (VERDICT r3 Missing #1).
+"""Multi-controller (multi-host) execution tests.
 
 The reference validates its MPI scale-out by actually running under mpirun
-(tests/unit/run_mpi_tests.py there); the TPU-native analogue launches TWO
+(tests/unit/run_mpi_tests.py there); the JAX analogue launches TWO
 real controller processes on the CPU backend (4 virtual devices each),
 joined by jax.distributed over localhost, and asserts that a sharded
 EPI2+kiops_jit trajectory over the cross-process mesh and a distributed
@@ -141,7 +141,7 @@ def test_two_process_production_driver(tmp_path):
     a mesh spanning two controller processes (12 virtual devices each ->
     (6,2,2)), with rank-gated stdout/blockstats, a distributed checkpoint,
     and a restart THROUGH the driver — all matching the single-process
-    trajectory (VERDICT r4 missing #3)."""
+    trajectory."""
     from wxfactory_tpu.simulation import Simulation
 
     outdir_mp = str(tmp_path / "mp")

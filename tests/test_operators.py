@@ -5,6 +5,8 @@ check, geometry/operators.py:836) plus exactness properties of Gauss-Legendre
 collocation.
 """
 
+import os
+
 import numpy as np
 import pytest
 import scipy.special
@@ -111,3 +113,24 @@ def test_remesh_operator_roundtrip_low_modes():
     # transfers exactly.
     f = 1.0 + 2.0 * pts_hi  # degree 1 < 3 - 1
     assert np.allclose(down @ f, 1.0 + 2.0 * pts_lo, atol=1e-12)
+
+
+PINNED = os.path.join(os.path.dirname(__file__), "data", "dfr_operators_n1_12.npz")
+
+
+@pytest.mark.parametrize("n", range(1, 13))
+def test_operators_match_pinned_float64(n):
+    """Nodes, weights, derivative and extrapolation matrices are bit for bit
+    the float64 values pinned in tests/data (built by the earlier symbolic
+    construction at 34 digits), and the extension-point derivative matrix
+    stays exactly skew-centrosymmetric."""
+    ops = make_dfr_operators(n)
+    with np.load(PINNED) as pinned:
+        for name in ("solpts", "weights", "diff", "diff_ext", "extrap_neg", "extrap_pos"):
+            want = pinned[f"{name}_{n}"]
+            got = np.asarray(getattr(ops, name), dtype=np.float64)
+            assert got.shape == want.shape, name
+            assert np.array_equal(got.view(np.uint64), want.view(np.uint64)), name
+    assert check_skew_centrosymmetry(ops.diff_ext)
+    if n > 1:
+        assert check_skew_centrosymmetry(ops.diff)

@@ -56,10 +56,13 @@ def test_matsuno_fields_match_reference_module():
     lat/lon arrays for every field/wave-type at t=0 and t=3600."""
     import importlib.util  # noqa: PLC0415
 
+    from ref_harness import REFERENCE_PATH, require_reference  # noqa: PLC0415
+
     from wxfactory_tpu.testcases import matsuno as mine  # noqa: PLC0415
 
+    require_reference()
     spec = importlib.util.spec_from_file_location(
-        "ref_matsuno", "/root/reference/wx_factory/init/matsuno.py"
+        "ref_matsuno", os.path.join(REFERENCE_PATH, "init", "matsuno.py")
     )
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)

@@ -1,4 +1,4 @@
-"""The solver stack ON THE MESH (VERDICT r3 Missing #2): the production
+"""The solver stack ON THE MESH: the production
 exponential/implicit hot loops — EPI2 + device-resident KIOPS and Ros2 +
 device-resident FGMRES — executed with the state sharded over a multi-device
 mesh, asserted against the single-device trajectory, and with the collective

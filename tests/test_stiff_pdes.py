@@ -26,7 +26,10 @@ def test_operators_match_reference():
     exactly. (The reference's periodic/Dirichlet advection single-process
     paths are broken — UnboundLocalError — so only these two can be
     compared.)"""
-    sys.path.insert(0, "/root/reference/wx_factory")
+    from ref_harness import REFERENCE_PATH, require_reference  # noqa: PLC0415
+
+    require_reference()
+    sys.path.insert(0, REFERENCE_PATH)
 
     def single(rank):
         from mpi4py import MPI

@@ -1,5 +1,5 @@
 """Hunt for an MG configuration that STRICTLY accelerates FGMRES on a
-canonical stiff solve (VERDICT r2 weak #2): case5/case6 SW rational system
+canonical stiff solve: case5/case6 SW rational system
 A = I - dt/2 J at the canonical shape, iterations-to-tol with and without
 the V-cycle preconditioner, over smoother / pseudo_cfl / level settings."""
 

@@ -1,5 +1,7 @@
-"""In-process harness for running the REFERENCE implementation (read-only at
-/root/reference) to produce golden data for parity tests.
+"""In-process harness for running the REFERENCE implementation (a read-only
+WxFactory checkout named by ``$WXF_REFERENCE_DIR``) to produce golden data
+for parity tests. Tests that need it skip when the variable is unset or the
+directory is missing (``require_reference``).
 
 The reference requires mpi4py with >= 6 ranks (one per cubed-sphere panel).
 This harness fakes mpi4py with a 6-thread lockstep world: every collective
@@ -12,6 +14,7 @@ numpy stand-in (the shallow-water path is pure numpy).
 This file is test tooling, not part of the wxfactory_tpu package.
 """
 
+import os
 import sys
 import threading
 import types
@@ -19,7 +22,20 @@ from typing import Callable, Dict, List
 
 import numpy as np
 
-REFERENCE_PATH = "/root/reference/wx_factory"
+REFERENCE_ROOT = os.environ.get("WXF_REFERENCE_DIR") or None
+REFERENCE_PATH = os.path.join(REFERENCE_ROOT, "wx_factory") if REFERENCE_ROOT else None
+
+
+def require_reference() -> None:
+    """Skip the calling test unless ``WXF_REFERENCE_DIR`` names a reference
+    checkout. Called from inside tests and fixtures, never at import, so
+    every pytest worker collects the same tests."""
+    import pytest
+
+    if REFERENCE_PATH is None:
+        pytest.skip("reference implementation not configured (set WXF_REFERENCE_DIR)")
+    if not os.path.isdir(REFERENCE_PATH):
+        pytest.skip(f"reference implementation not found at {REFERENCE_PATH} (WXF_REFERENCE_DIR)")
 
 _tls = threading.local()
 
@@ -166,6 +182,7 @@ class _DoneRequest:
 
 def _install_fake_modules():
     """Install fake mpi4py + device modules, and the reference on sys.path."""
+    require_reference()
     if REFERENCE_PATH not in sys.path:
         sys.path.insert(0, REFERENCE_PATH)
 
@@ -632,7 +649,7 @@ def reference_sw_epi_steps(case_number: int, nel_per_tile: int, num_solpts: int,
     """Run the reference SW model through its Epi exponential integrator
     (integrators/epi.py there, complex-step Jacobian + kiops/pmex) for
     `num_steps` steps — the canonical case6 configuration
-    (/root/reference/config/case6.ini: epi3 + pmex). Returns the global
+    (reference config/case6.ini: epi3 + pmex). Returns the global
     state after each step: (num_steps, 3, 6, ny, nx, s^2)."""
     _install_fake_modules()
 

@@ -1,14 +1,14 @@
-"""WxFactory-TPU: a TPU-native numerical weather prediction dynamical core.
+"""wxfactory_tpu: a JAX numerical weather prediction dynamical core.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
-Wx-Alliance-Meteo/WxFactory (reference: /root/reference): Direct Flux
+A ground-up JAX/XLA re-design of the capabilities of
+Wx-Alliance-Meteo/WxFactory (the reference): Direct Flux
 Reconstruction (DFR) discretization of the shallow-water and 3D Euler
 equations on the rotated equiangular cubed sphere (plus a 2D Cartesian test
 plane), driven by exponential (EPI/SRERK) and implicit (Ros2/CN/BDF2) time
 integrators built on matrix-free Krylov methods (KIOPS, PMEX, FGMRES).
 
-Design principles (TPU-first, not a port):
-  * All spatial operators are batched dense matmuls -> MXU.
+Design principles (a re-design, not a port):
+  * All spatial operators are batched dense matmuls.
   * The state is a single array ``Q[num_var, ...element dims..., solpts^d]``
     and every RHS is a pure jittable function ``q -> dq/dt``.
   * Distribution = sharding the (panel, row, col) element grid over a
@@ -17,8 +17,8 @@ Design principles (TPU-first, not a port):
     collectives (explicit shard_map/ppermute path for the hot configuration).
   * Jacobian action = ``jax.jvp`` (exact forward-mode) instead of the
     reference's complex-step trick (solvers/matvec.py:36-68 there).
-  * Operator matrices are built on host with sympy/numpy at setup time and
-    closed over as compile-time constants.
+  * Operator matrices are built on host (exact rational arithmetic + numpy)
+    at setup time and closed over as compile-time constants.
 """
 
 import os
@@ -31,13 +31,12 @@ import jax
 if not os.environ.get("WXF_DISABLE_X64"):
     jax.config.update("jax_enable_x64", True)
 
-# On TPU the DEFAULT f32 matmul is a single bf16 MXU pass (~2e-3 relative
-# error) — at Williamson case 6 that alone makes the f32 RHS 8-17x the
-# tendency scale (pure noise; round-2 VERDICT Missing #1). "highest" forces
-# full-f32 multi-pass GEMMs (~1.3e-7) and is the only numerically defensible
-# default for a weather model. Override with WXF_MM_PRECISION=default/high
-# for speed experiments (in-kernel Pallas dots follow the same knob via
-# ops.kernel_precision()).
+# A GPU may run DEFAULT-precision f32 matmuls in TF32 (10-bit mantissa,
+# ~1e-3 relative input rounding), which at Williamson case 6 turns the f32
+# RHS into tendency-scale noise. "highest" keeps f32 products in full f32
+# and is the only numerically defensible default for a weather model (f64
+# products are unaffected). Override with WXF_MM_PRECISION=default/high for
+# speed experiments.
 jax.config.update(
     "jax_default_matmul_precision", os.environ.get("WXF_MM_PRECISION", "highest")
 )

@@ -12,7 +12,7 @@ import sys
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="wxfactory_tpu", description="TPU-native NWP dynamical core (WxFactory capabilities)"
+        prog="wxfactory_tpu", description="JAX NWP dynamical core (WxFactory capabilities)"
     )
     parser.add_argument("config", nargs="?", help="Path to the simulation configuration (INI)")
     parser.add_argument("--profile", action="store_true", help="Profile the run with cProfile")
@@ -23,7 +23,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--jax-trace", metavar="DIR", default=None,
         help="Capture a jax.profiler trace of the run into DIR (TensorBoard/"
-             "Perfetto-viewable; the TPU analogue of the reference's NSight "
+             "Perfetto-viewable; the analogue of the reference's NSight "
              "hookup, scripts/wx.sh:23 there)",
     )
     # Multi-controller (multi-host) execution — the analogue of the
@@ -54,7 +54,10 @@ def main(argv=None) -> int:
     if not args.config:
         parser.error("a configuration file is required (or use --config-options)")
 
+    from .runtime import enable_compilation_cache
     from .simulation import Simulation
+
+    enable_compilation_cache()
 
     def run():
         sim = Simulation(args.config)

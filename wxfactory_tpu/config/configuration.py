@@ -17,7 +17,7 @@ class Configuration:
     # for discoverability / IDEs)
     equations: str
     depth_approx: str
-    desired_device: str
+    desired_device: Optional[str]
     precision: str
     case_number: int
     dt: float

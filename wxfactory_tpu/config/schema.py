@@ -131,8 +131,10 @@ SCHEMA: List[Field] = [
     _f("General", "depth_approx", "str", "shallow", choices=["deep", "shallow"],
        doc="3D atmosphere depth approximation"),
     # System
-    _f("System", "desired_device", "str", "tpu", choices=["cpu", "tpu", "cuda"],
-       doc="Compute device ('cuda' accepted for reference-config compatibility; maps to the JAX default)"),
+    _f("System", "desired_device", "str", None, choices=["cpu", "cuda"],
+       doc="Platform the run is placed on: 'cpu' or 'cuda' (the JAX GPU platform); "
+           "the run fails when the named platform is absent. Unset: the platform JAX "
+           "starts on"),
     _f("System", "cuda_devices", "list-int", [], doc="Ignored (reference compatibility)"),
     _f("System", "distribute", "str", "auto", choices=["auto", "off", "gspmd", "shard_map"],
        doc="Multi-device execution (parallel/mesh.py). 'auto': when more than one device is "
@@ -142,10 +144,7 @@ SCHEMA: List[Field] = [
            "analogue of the reference's mpirun -n 6N^2 launch, but any device count works. "
            "'off': single-device/replicated. 'gspmd'/'shard_map': force that path"),
     _f("System", "precision", "str", "float64", choices=["float32", "float64"],
-       doc="State/compute dtype. float64 matches the reference bit-for-bit; float32 is the "
-           "TPU-native operating point (enables the fused Pallas pipelines; the 3D Euler model "
-           "adds a well-balanced offset around the initial state to absorb the f32 hydrostatic "
-           "cancellation error)"),
+       doc="State/compute dtype. float64 matches the reference bit-for-bit"),
     # Test case
     _f("Test_case", "case_number", "int", -1, doc="Test-case identifier (Williamson/DCMIP/bubble numbering)"),
     _f("Test_case", "matsuno_wave_type", "str", "rossby", choices=["rossby", "eig", "wig"]),
@@ -170,18 +169,16 @@ SCHEMA: List[Field] = [
        choices=["auto", "fgmres", "fgmres_jit", "fgmres_jit_1s", "gcrot"]),
     _f("Time_integration", "device_step_chunk", "int", 1, min=1,
        doc="Run up to N equal timesteps per device dispatch (ONE XLA program "
-           "per chunk: lax.scan over the whole step for Epi/kiops_jit, over "
-           "the fused Pallas stage chain for explicit schemes). Outputs, "
-           "checkpoints and stats land exactly on their configured steps; "
-           "solver stats/NaN checks are per CHUNK in between. TPU-native "
-           "extension (no reference equivalent): amortizes the per-step "
-           "host dispatch latency"),
+           "per chunk: lax.scan over the whole step for Epi/kiops_jit and "
+           "Ros2/fgmres_jit). Outputs, checkpoints and stats land exactly on "
+           "their configured steps; solver stats/NaN checks are per CHUNK in "
+           "between. Extension (no reference equivalent): amortizes the "
+           "per-step host dispatch latency"),
     _f("Time_integration", "mixed_precision_krylov", "bool", False,
        doc="Run the Epi/Ros2 Krylov hot loop (Arnoldi matvec + basis) in "
            "float32 via a perturbation-form companion RHS around the "
            "initial state, keeping controllers/residuals float64 "
-           "(~4-10x per step on TPU; cubed-sphere models, device-resident "
-           "solvers only)"),
+           "(cubed-sphere models, device-resident solvers only)"),
     _f("Time_integration", "verbose_solver", "int", 0),
     _f("Time_integration", "gmres_restart", "int", 20, min=1),
     # Spatial discretization

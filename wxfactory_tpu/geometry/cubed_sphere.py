@@ -6,7 +6,7 @@ per-panel grid-rotation parameters, lat/lon + Cartesian coordinates at
 solution points and element interfaces, and wind <-> contravariant
 conversions.
 
-TPU-first design: instead of one object per MPI rank/tile, the geometry is
+Design: instead of one object per MPI rank/tile, the geometry is
 GLOBAL — every array carries a leading panel axis of length 6, shaped
 ``(6, nel, nel, s^2)`` to match the state layout ``Q[nvar, 6, ny, nx, s^2]``.
 The whole model then runs as a single jittable program; distribution is by

@@ -6,7 +6,7 @@ mapped to height by the linear terrain-following (Gal-Chen style) relation
 z = zbot + (ztop - zbot) * eta, topography application, lat/lon fields, and
 2D/3D wind <-> contravariant conversions.
 
-TPU-first design (same as the 2D geometry): arrays are GLOBAL with a
+Design (same as the 2D geometry): arrays are GLOBAL with a
 leading panel axis, element-blocked "new layout"
 ``(6, nk, ny, nx, s^3)`` with in-element index (kz*s + ky)*s + kx.
 Interface quantities are stored PER INTERFACE (one value each), shapes

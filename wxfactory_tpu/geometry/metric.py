@@ -55,18 +55,6 @@ class Metric2D:
 
     coriolis_f: np.ndarray
 
-    # Factored form of the time Christoffels: christoffel_a_0b ==
-    # coriolis_factor_a_0b * gridrot, where the factor is identical on all
-    # six panels (pure geometry) and ``gridrot`` carries the entire
-    # panel/rotation dependence (metric.py:93-99). The fused TPU kernels
-    # exploit this to read 13 single-panel constants + one full field
-    # instead of 13 full fields.
-    gridrot: np.ndarray
-    coriolis_factor_1_01: np.ndarray
-    coriolis_factor_1_02: np.ndarray
-    coriolis_factor_2_01: np.ndarray
-    coriolis_factor_2_02: np.ndarray
-
 
 def make_metric_2d(geom: CubedSphere2D) -> Metric2D:
     """All metric quantities in closed form from the gnomonic coordinates
@@ -151,9 +139,4 @@ def make_metric_2d(geom: CubedSphere2D) -> Metric2D:
         christoffel_2_12=chr_2_12,
         christoffel_2_22=chr_2_22,
         coriolis_f=coriolis_f,
-        gridrot=gridrot,
-        coriolis_factor_1_01=cf_1_01,
-        coriolis_factor_1_02=cf_1_02,
-        coriolis_factor_2_01=cf_2_01,
-        coriolis_factor_2_02=cf_2_02,
     )

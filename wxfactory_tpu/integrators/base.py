@@ -4,7 +4,7 @@ Capability parity with the reference's integrators/integrator.py:18-113:
 the `step` template tracks wall time, convergence info, and optional
 preconditioner preparation; concrete schemes implement `__step__`.
 
-TPU-native difference: concrete integrators are encouraged to expose their
+Design difference: concrete integrators are encouraged to expose their
 entire step as one jittable function (`self._step`), so a whole timestep
 (RHS evaluations + Krylov loops included) compiles to a single XLA program.
 """
@@ -12,7 +12,27 @@ entire step as one jittable function (`self._step`), so a whole timestep
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
 from time import time
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
+
+import jax
+from jax.tree_util import Partial
+
+
+def as_pytree(fn: Optional[Callable]) -> Optional[Partial]:
+    """``fn`` as a value a jitted program can take as an ARGUMENT. The
+    models build their RHS as a ``jax.tree_util.Partial`` that carries its
+    constants as leaves, which the program then receives as parameters
+    instead of embedding them as literals. Any other callable (a user's
+    own RHS) is wrapped with no leaves: its closure stays embedded."""
+    if fn is None or isinstance(fn, Partial):
+        return fn
+    return Partial(fn)
+
+
+@jax.jit
+def apply_rhs(rhs, q):
+    """``rhs(q)`` as one program that takes the RHS as an argument."""
+    return rhs(q)
 
 
 @dataclass
@@ -63,10 +83,9 @@ class Integrator(ABC):
         scheme allows. Base fallback: repeated single steps (semantics
         identical to calling `step` in a loop; `solver_info` reflects the
         last step). Device-resident schemes override this with ONE XLA
-        program per chunk (Epi/kiops_jit: lax.scan over the whole step;
-        packed explicit: scan over the fused Pallas stage chain), which is
-        the production fast path the `device_step_chunk` config knob selects
-        (simulation.py)."""
+        program per chunk (Epi/kiops_jit and Ros2/fgmres_jit: lax.scan over
+        the whole step), which is the production fast path the
+        `device_step_chunk` config knob selects (simulation.py)."""
         for _ in range(nsteps):
             q = self.step(q, dt)
         return q

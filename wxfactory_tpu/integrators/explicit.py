@@ -1,102 +1,27 @@
 """Explicit time integrators (forward Euler, TVD-RK3).
 
 Capability parity with the reference's integrators/euler1.py and tvdrk3.py.
-Each step is a single jitted function over the RHS.
-
-When the RHS exposes the fused packed pipeline (``packed_stage_chained`` —
-the TPU Pallas fast path of the SW / 3D Euler models), the step runs in the
-kernel's packed layout and chains the edge slabs across stages AND across
-steps: the steady-state loop is exactly one mega kernel plus the tiny
-edge-sized halo stage per RK stage. The model-layout state is still what
-``step`` consumes/returns (the driver's NaN guard and output path see the
-usual layout); the packed twin plus its slabs ride along in a one-entry
-cache keyed on array identity, so back-to-back steps skip the repack and
-the halo bootstrap.
+Each step is a single jitted function that takes the RHS as an argument.
 """
 
-from time import time
+from functools import partial
 from typing import Callable
 
 import jax
 
-from .base import Integrator, SolverInfo
+from .base import Integrator, SolverInfo, as_pytree
 
 
-def _chunked_packed_steps(self, q, dt, nsteps):
-    """Shared `steps_device` body for packed-chain explicit integrators."""
-    if self._packed is None:
-        return Integrator.steps_device(self, q, dt, nsteps)
-    t0 = time()
-    q = self._packed.steps(q, dt, nsteps)
-    self.latest_time = time() - t0
-    self.sim_time += dt * nsteps
-    self.num_completed_steps += nsteps
-    self.solver_info = SolverInfo(total_num_it=nsteps)
-    return q
+@jax.jit
+def _euler1_step(rhs, q, dt):
+    return q + rhs(q) * dt
 
 
-class _PackedChain:
-    """Shared packed-stage stepping machinery for explicit integrators."""
-
-    def __init__(self, rhs, stages):
-        # stages: list of (a, b, dt_coeff) with the convention
-        # q_{k+1} = a*q0 + b*q_k + dt_coeff*dt*RHS(q_k)
-        self.rhs = rhs
-        self._cache = None  # (result_array, packed_result, slabs)
-
-        chained = rhs.packed_stage_chained
-
-        def _step_packed(qp, slabs, dt):
-            y = qp
-            for a, b, c in stages:
-                y, slabs = chained(qp, y, slabs, a, b, c * dt)
-            return y, slabs
-
-        self._step_packed = jax.jit(_step_packed)
-
-        from functools import partial
-
-        @partial(jax.jit, static_argnums=(3,))
-        def _steps_packed(qp, slabs, dt, nsteps):
-            def body(carry, _):
-                return _step_packed(*carry, dt), None
-
-            return jax.lax.scan(body, (qp, slabs), None, length=nsteps)[0]
-
-        self._steps_packed = _steps_packed
-
-    def step(self, q, dt):
-        rhs = self.rhs
-        if self._cache is not None and self._cache[0] is q:
-            qp, slabs = self._cache[1], self._cache[2]
-        else:
-            qp = rhs.pack(q)
-            slabs = rhs.packed_slabs(qp)
-        qp, slabs = self._step_packed(qp, slabs, dt)
-        out = rhs.unpack(qp).reshape(q.shape)
-        self._cache = (out, qp, slabs)
-        return out
-
-    def steps(self, q, dt, nsteps):
-        """``nsteps`` steps as ONE XLA program (lax.scan over the fused
-        stage chain, state staying in the packed kernel layout throughout);
-        unpacks once at the end."""
-        rhs = self.rhs
-        if self._cache is not None and self._cache[0] is q:
-            qp, slabs = self._cache[1], self._cache[2]
-        else:
-            qp = rhs.pack(q)
-            slabs = rhs.packed_slabs(qp)
-        qp, slabs = self._steps_packed(qp, slabs, dt, nsteps)
-        out = rhs.unpack(qp).reshape(q.shape)
-        self._cache = (out, qp, slabs)
-        return out
-
-
-def _make_packed_chain(rhs, stages):
-    if all(hasattr(rhs, n) for n in ("packed_stage_chained", "packed_slabs", "pack", "unpack")):
-        return _PackedChain(rhs, stages)
-    return None
+@jax.jit
+def _tvdrk3_step(rhs, q, dt):
+    q1 = q + rhs(q) * dt
+    q2 = 0.75 * q + 0.25 * q1 + 0.25 * rhs(q1) * dt
+    return q / 3.0 + 2.0 / 3.0 * q2 + 2.0 / 3.0 * rhs(q2) * dt
 
 
 class Euler1(Integrator):
@@ -104,20 +29,11 @@ class Euler1(Integrator):
 
     def __init__(self, rhs: Callable, **kwargs) -> None:
         super().__init__(**kwargs)
-        self.rhs = rhs
-        self._packed = _make_packed_chain(rhs, [(0.0, 1.0, 1.0)])
-
-        def _step(q, dt):
-            return q + rhs(q) * dt
-
-        self._step = jax.jit(_step)
+        self.rhs = as_pytree(rhs)
+        self._step = partial(_euler1_step, self.rhs)
 
     def __step__(self, q, dt):
-        if self._packed is not None:
-            return self._packed.step(q, dt)
         return self._step(q, dt)
-
-    steps_device = _chunked_packed_steps
 
 
 class Tvdrk3(Integrator):
@@ -125,23 +41,9 @@ class Tvdrk3(Integrator):
 
     def __init__(self, rhs: Callable, **kwargs) -> None:
         super().__init__(**kwargs)
-        self.rhs = rhs
-        self._packed = _make_packed_chain(
-            rhs,
-            [(0.0, 1.0, 1.0), (0.75, 0.25, 0.25), (1.0 / 3.0, 2.0 / 3.0, 2.0 / 3.0)],
-        )
-
-        def _step(q, dt):
-            q1 = q + rhs(q) * dt
-            q2 = 0.75 * q + 0.25 * q1 + 0.25 * rhs(q1) * dt
-            return q / 3.0 + 2.0 / 3.0 * q2 + 2.0 / 3.0 * rhs(q2) * dt
-
-        self._step = jax.jit(_step)
+        self.rhs = as_pytree(rhs)
+        self._step = partial(_tvdrk3_step, self.rhs)
 
     def __step__(self, q, dt):
         self.solver_info = SolverInfo(total_num_it=1)
-        if self._packed is not None:
-            return self._packed.step(q, dt)
         return self._step(q, dt)
-
-    steps_device = _chunked_packed_steps

@@ -5,7 +5,7 @@ nodes from the minimal-error-term polynomial roots (opt_nodes), per-stage
 nonlinear-remainder projections with alpha coefficients, and the same
 adaptive Krylov phi solvers (KIOPS/PMEX) underneath.
 
-TPU-native: one jitted jvp program supplies every Jacobian action; the
+Design: one jitted jvp program supplies every Jacobian action; the
 per-stage RHS evaluations reuse the jitted RHS.
 """
 

@@ -4,7 +4,7 @@ Capability parity with the reference's pde/pde_euler_cartesian.py plus its
 compiled kernels (pde/kernels/pointwise_flux.hpp, riemann_flux.hpp [AUSM],
 boundary_flux.hpp [rigid wall]) and the DFR assembly of rhs/rhs_dfr.py:8-46.
 
-TPU-first design: no per-point kernels — the pointwise flux and the AUSM
+Design: no per-point kernels — the pointwise flux and the AUSM
 Riemann solve are vectorized elementwise jnp expressions that XLA fuses into
 the surrounding extrapolation / derivative / correction GEMMs. The whole RHS
 is one pure jittable function ``q -> dq/dt``.
@@ -18,6 +18,7 @@ from typing import Callable, Tuple
 
 import jax.numpy as jnp
 import numpy as np
+from jax.tree_util import Partial
 
 from ..common.constants import (
     GRAVITY,
@@ -121,6 +122,9 @@ def make_rhs_euler_cartesian(
     (rhs/rhs.py:75-122) minus communication (this grid is single-shard):
     extrapolate -> pointwise flux -> interior derivative -> Riemann (AUSM)
     + wall BCs -> boundary correction -> gravity forcing.
+
+    The RHS is a ``jax.tree_util.Partial`` whose leaves are its operator
+    blocks, as in the cubed-sphere models.
     """
     s = ops.num_solpts
 
@@ -139,7 +143,8 @@ def make_rhs_euler_cartesian(
         np.concatenate([scale_x * ops.correction_WE, scale_z * ops.correction_DU], axis=0), dtype=dtype
     )
 
-    def rhs(q: jnp.ndarray) -> jnp.ndarray:
+    def rhs_fn(blocks, q: jnp.ndarray) -> jnp.ndarray:
+        EE, DD, CC = blocks
         # 1. Extrapolate the solution to all four element faces (one GEMM).
         itf = q @ EE  # (4, nz, nx, 4s)
         q_itf_x = itf[..., : 2 * s]
@@ -183,4 +188,4 @@ def make_rhs_euler_cartesian(
         # 6. Gravity source on vertical momentum.
         return out.at[IDX_2D_RHO_W].add(-q[IDX_2D_RHO] * GRAVITY)
 
-    return rhs
+    return Partial(rhs_fn, (EE, DD, CC))

@@ -5,22 +5,20 @@ sqrt(g)-weighted fluxes with the 0.5*g*H^ij*h^2 pressure term, AUSM-type
 Mach-splitting interface fluxes, Coriolis + Christoffel + topography-gradient
 forcing, and optional bottom topography (Williamson case 5).
 
-TPU-first design: the state is global, ``Q[3, 6, ny, nx, s^2]``
-(h, h*u1, h*u2), and the whole RHS is one pure jittable function. The halo
-exchange at panel edges is the derived-table exchange of
-parallel/topology.py (pure gathers + 2x2 rotations; GSPMD turns them into
-ICI collectives when sharded). Interface fluxes are computed per *interface*
+Design: the state is global, ``Q[3, 6, ny, nx, s^2]`` (h, h*u1, h*u2), and
+the whole RHS is one pure jittable function. The halo exchange at panel
+edges is the derived-table exchange of parallel/topology.py (pure gathers +
+2x2 rotations; GSPMD turns them into collectives when sharded). Interface fluxes are computed per *interface*
 (nx+1 per row) instead of per element-face pair, which halves the AUSM math
 and feeds a single boundary-correction GEMM per direction.
 """
 
-import os
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.tree_util import Partial
 
 from ..common.constants import GRAVITY
 from ..geometry.cubed_sphere import CubedSphere2D
@@ -44,13 +42,61 @@ class Topography:
     dzdx2: np.ndarray
 
 
+class SWConstants(NamedTuple):
+    """The RHS's operator, metric and topography arrays: the leaves of its
+    ``Partial``. The topography fields are None without topography."""
+
+    EE: jnp.ndarray  # (s^2, 4s) extrapolation, x then y faces
+    DD: jnp.ndarray  # (2 s^2, s^2) x+y derivative
+    CC: jnp.ndarray  # (4s, s^2) x+y boundary correction
+    sqrtG: jnp.ndarray
+    inv_sqrtG: jnp.ndarray
+    h11: jnp.ndarray
+    h12: jnp.ndarray
+    h21: jnp.ndarray
+    h22: jnp.ndarray
+    sqrtG_ix: jnp.ndarray
+    h11_ix: jnp.ndarray
+    h21_ix: jnp.ndarray
+    sqrtG_jx: jnp.ndarray
+    h12_jx: jnp.ndarray
+    h22_jx: jnp.ndarray
+    chr_1_01: jnp.ndarray
+    chr_1_02: jnp.ndarray
+    chr_2_01: jnp.ndarray
+    chr_2_02: jnp.ndarray
+    chr_1_11: jnp.ndarray
+    chr_1_12: jnp.ndarray
+    chr_2_12: jnp.ndarray
+    chr_2_22: jnp.ndarray
+    hsurf: Optional[jnp.ndarray] = None
+    hsurf_ix: Optional[jnp.ndarray] = None
+    hsurf_jx: Optional[jnp.ndarray] = None
+    dzdx1: Optional[jnp.ndarray] = None
+    dzdx2: Optional[jnp.ndarray] = None
+
+
+class SWBase(NamedTuple):
+    """Base-state intermediates of the perturbation form, in the working
+    dtype: the f64 base RHS, the base state, its velocities and its
+    left/right interface states."""
+
+    rhs0: jnp.ndarray
+    q0: jnp.ndarray
+    u10: jnp.ndarray
+    u20: jnp.ndarray
+    Lx0: jnp.ndarray
+    Rx0: jnp.ndarray
+    Ly0: jnp.ndarray
+    Ry0: jnp.ndarray
+
+
 def make_rhs_shallow_water(
     geom: CubedSphere2D,
     ops: DFROperators,
     metric: Metric2D,
     topo: Optional[Topography] = None,
     dtype=jnp.float64,
-    interior: Optional[str] = None,
     perturbation_base: Optional[jnp.ndarray] = None,
 ) -> Callable[[jnp.ndarray], jnp.ndarray]:
     """Build the jittable shallow-water RHS ``Q -> dQ/dt``.
@@ -60,11 +106,6 @@ def make_rhs_shallow_water(
     sqrt(g)-weighted pointwise fluxes -> interior derivative -> AUSM interface
     fluxes -> boundary correction -> metric/Coriolis/topography forcing.
 
-    ``interior`` selects the implementation of the pointwise-flux +
-    interior-derivative stage: ``"xla"`` (default; fused jnp, reference
-    semantics, runs everywhere) or ``"pallas"`` (fused VMEM-resident Pallas
-    kernel, f32, TPU; also honours ``WXF_USE_PALLAS=1``).
-
     ``perturbation_base``: a balanced state (usually the initial condition)
     that turns the operator into the perturbation (base-state-split) form
     ``RHS(q) = RHS_f64(q0) + [RHS(q) - RHS(q0)]`` with the bracket expanded
@@ -73,59 +114,55 @@ def make_rhs_shallow_water(
     forcing, ~7-8 orders below the flux scale at Williamson case 6) never
     has to survive float32 rounding. The reference sidesteps this by
     computing absolute variables in float64 (rhs/rhs_sw.py:81-238); the
-    perturbation form is the standard NWP alternative and is what makes an
-    f32/TPU operating point numerically meaningful. The returned callable
+    perturbation form is the standard NWP alternative and is what makes a
+    float32 operating point numerically meaningful. The returned callable
     takes the ABSOLUTE state and exposes ``.delta`` (perturbation in,
-    tendency out — full f32 resolution) and ``.base_state``.
+    tendency out — full f32 resolution), ``.base_state`` and ``.xla`` (the
+    absolute-form operator).
+
+    The operators are ``jax.tree_util.Partial`` objects whose leaves are
+    the constants (``SWConstants``, ``SWBase``), as in the 3D model: a
+    jitted program that takes one as an argument receives them as
+    parameters instead of embedding them as literals.
     """
     s = ops.num_solpts
     nel = geom.num_elements
     topology = CubedSphereTopology(geom)
-    if interior is None:
-        if os.environ.get("WXF_USE_PALLAS", "") == "0":
-            interior = "xla"
-        else:
-            # The fused pipeline is the production fast path on TPU (it beats
-            # the XLA schedule by ~12% in stepping context); off-TPU it would
-            # run in slow interpret mode, so default to XLA there.
-            interior = "pallas" if jax.default_backend() == "tpu" else "xla"
-    use_pallas = interior == "pallas"
+
+    s = ops.num_solpts
+    nel = geom.num_elements
+    topology = CubedSphereTopology(geom)
+    c = lambda a: jnp.asarray(a, dtype=dtype)
 
     # Fused operator blocks: both directions of each stage in ONE batched
     # GEMM (x2 is the slow element axis, so the reference's "z" 1D lifts are
     # this model's y operators). DD contracts the direction-concatenated
     # fluxes straight into the x+y divergence sum; CC does the same for the
-    # boundary corrections.
-    EE = jnp.asarray(np.concatenate([ops.extrap_x, ops.extrap_z], axis=1), dtype=dtype)
-    DD = jnp.asarray(np.concatenate([ops.derivative_x, ops.derivative_z], axis=0), dtype=dtype)
-    CC = jnp.asarray(np.concatenate([ops.correction_WE, ops.correction_DU], axis=0), dtype=dtype)
-
-    c = lambda a: jnp.asarray(a, dtype=dtype)
-
-    sqrtG = c(metric.sqrtG)
-    inv_sqrtG = c(metric.inv_sqrtG)
-    h11, h12 = c(metric.H_contra_11), c(metric.H_contra_12)
-    h21, h22 = c(metric.H_contra_21), c(metric.H_contra_22)
-
-    # Per-interface metric values: interface m (0..nel) is the west face of
-    # halo-layout element m+1.
-    sqrtG_ix = c(metric.sqrtG_itf_i[:, :, 1:, :s])  # (6, ny, nx+1, s)
-    h11_ix = c(metric.H_contra_11_itf_i[:, :, 1:, :s])
-    h21_ix = c(metric.H_contra_21_itf_i[:, :, 1:, :s])
-    sqrtG_jx = c(metric.sqrtG_itf_j[:, 1:, :, :s])  # (6, ny+1, nx, s)
-    h12_jx = c(metric.H_contra_12_itf_j[:, 1:, :, :s])
-    h22_jx = c(metric.H_contra_22_itf_j[:, 1:, :, :s])
-
-    chr_1_01, chr_1_02 = c(metric.christoffel_1_01), c(metric.christoffel_1_02)
-    chr_2_01, chr_2_02 = c(metric.christoffel_2_01), c(metric.christoffel_2_02)
-    chr_1_11, chr_1_12 = c(metric.christoffel_1_11), c(metric.christoffel_1_12)
-    chr_2_12, chr_2_22 = c(metric.christoffel_2_12), c(metric.christoffel_2_22)
-
+    # boundary corrections. Per-interface metric values: interface m
+    # (0..nel) is the west face of halo-layout element m+1.
+    cst = SWConstants(
+        EE=c(np.concatenate([ops.extrap_x, ops.extrap_z], axis=1)),
+        DD=c(np.concatenate([ops.derivative_x, ops.derivative_z], axis=0)),
+        CC=c(np.concatenate([ops.correction_WE, ops.correction_DU], axis=0)),
+        sqrtG=c(metric.sqrtG), inv_sqrtG=c(metric.inv_sqrtG),
+        h11=c(metric.H_contra_11), h12=c(metric.H_contra_12),
+        h21=c(metric.H_contra_21), h22=c(metric.H_contra_22),
+        sqrtG_ix=c(metric.sqrtG_itf_i[:, :, 1:, :s]),  # (6, ny, nx+1, s)
+        h11_ix=c(metric.H_contra_11_itf_i[:, :, 1:, :s]),
+        h21_ix=c(metric.H_contra_21_itf_i[:, :, 1:, :s]),
+        sqrtG_jx=c(metric.sqrtG_itf_j[:, 1:, :, :s]),  # (6, ny+1, nx, s)
+        h12_jx=c(metric.H_contra_12_itf_j[:, 1:, :, :s]),
+        h22_jx=c(metric.H_contra_22_itf_j[:, 1:, :, :s]),
+        chr_1_01=c(metric.christoffel_1_01), chr_1_02=c(metric.christoffel_1_02),
+        chr_2_01=c(metric.christoffel_2_01), chr_2_02=c(metric.christoffel_2_02),
+        chr_1_11=c(metric.christoffel_1_11), chr_1_12=c(metric.christoffel_1_12),
+        chr_2_12=c(metric.christoffel_2_12), chr_2_22=c(metric.christoffel_2_22),
+    )
     if topo is not None:
-        hsurf = c(topo.hsurf)
-        hsurf_ix = c(topo.hsurf_itf_x1)
-        hsurf_jx = c(topo.hsurf_itf_x2)
-        dzdx1, dzdx2 = c(topo.dzdx1), c(topo.dzdx2)
+        cst = cst._replace(
+            hsurf=c(topo.hsurf), hsurf_ix=c(topo.hsurf_itf_x1), hsurf_jx=c(topo.hsurf_itf_x2),
+            dzdx1=c(topo.dzdx1), dzdx2=c(topo.dzdx2),
+        )
 
     def ausm_interface_flux(qL, qR, sqrtG_itf, h_diag_itf, h_off_itf, normal: int):
         """AUSM Mach-splitting common flux at a set of interfaces.
@@ -163,7 +200,7 @@ def make_rhs_shallow_water(
         flux = flux.at[rows[1]].add(pres_off)
         return flux
 
-    def rhs(q: jnp.ndarray) -> jnp.ndarray:
+    def rhs_fn(k: SWConstants, q: jnp.ndarray) -> jnp.ndarray:
         h = q[IDX_H]
         hu1 = q[IDX_HU1]
         hu2 = q[IDX_HU2]
@@ -172,9 +209,9 @@ def make_rhs_shallow_water(
 
         # 1. Extrapolate to element faces; h carries the surface height so
         # that the exchanged/jump quantity is continuous over topography.
-        h_total = h + hsurf if topo is not None else h
+        h_total = h + k.hsurf if k.hsurf is not None else h
         q_ext = jnp.stack([h_total, hu1, hu2])
-        itf = q_ext @ EE  # (3, 6, ny, nx, 4s)
+        itf = q_ext @ k.EE  # (3, 6, ny, nx, 4s)
         itf_x = itf[..., : 2 * s]
         itf_y = itf[..., 2 * s :]
 
@@ -195,19 +232,19 @@ def make_rhs_shallow_water(
         hsq = h**2
         fx = jnp.stack(
             [
-                sqrtG * hu1,
-                sqrtG * (hu1 * u1 + 0.5 * GRAVITY * h11 * hsq),
-                sqrtG * (hu2 * u1 + 0.5 * GRAVITY * h21 * hsq),
+                k.sqrtG * hu1,
+                k.sqrtG * (hu1 * u1 + 0.5 * GRAVITY * k.h11 * hsq),
+                k.sqrtG * (hu2 * u1 + 0.5 * GRAVITY * k.h21 * hsq),
             ]
         )
         fy = jnp.stack(
             [
-                sqrtG * hu2,
-                sqrtG * (hu1 * u2 + 0.5 * GRAVITY * h12 * hsq),
-                sqrtG * (hu2 * u2 + 0.5 * GRAVITY * h22 * hsq),
+                k.sqrtG * hu2,
+                k.sqrtG * (hu1 * u2 + 0.5 * GRAVITY * k.h12 * hsq),
+                k.sqrtG * (hu2 * u2 + 0.5 * GRAVITY * k.h22 * hsq),
             ]
         )
-        df = jnp.concatenate([fx, fy], axis=-1) @ DD  # x+y divergence sum
+        df = jnp.concatenate([fx, fy], axis=-1) @ k.DD  # x+y divergence sum
 
         # 4. Left/right states at every x1 interface (nx+1 per element row).
         qL_x = jnp.concatenate([halo_w, itf_x[..., s:].reshape(3, 6, ny, nx, s)], axis=-2)
@@ -215,446 +252,226 @@ def make_rhs_shallow_water(
         qL_y = jnp.concatenate([halo_s, itf_y[..., s:].reshape(3, 6, ny, nx, s)], axis=-3)
         qR_y = jnp.concatenate([itf_y[..., :s].reshape(3, 6, ny, nx, s), halo_n], axis=-3)
 
-        if topo is not None:
-            qL_x = qL_x.at[IDX_H].add(-hsurf_ix)
-            qR_x = qR_x.at[IDX_H].add(-hsurf_ix)
-            qL_y = qL_y.at[IDX_H].add(-hsurf_jx)
-            qR_y = qR_y.at[IDX_H].add(-hsurf_jx)
+        if k.hsurf is not None:
+            qL_x = qL_x.at[IDX_H].add(-k.hsurf_ix)
+            qR_x = qR_x.at[IDX_H].add(-k.hsurf_ix)
+            qL_y = qL_y.at[IDX_H].add(-k.hsurf_jx)
+            qR_y = qR_y.at[IDX_H].add(-k.hsurf_jx)
 
-        f_itf_x = ausm_interface_flux(qL_x, qR_x, sqrtG_ix, h11_ix, h21_ix, IDX_HU1)
-        f_itf_y = ausm_interface_flux(qL_y, qR_y, sqrtG_jx, h22_jx, h12_jx, IDX_HU2)
+        f_itf_x = ausm_interface_flux(qL_x, qR_x, k.sqrtG_ix, k.h11_ix, k.h21_ix, IDX_HU1)
+        f_itf_y = ausm_interface_flux(qL_y, qR_y, k.sqrtG_jx, k.h22_jx, k.h12_jx, IDX_HU2)
 
         # 5. Boundary-correction GEMM: element faces [west | east] from the
         # per-interface fluxes, then the 2-column correction operator.
         faces_x = jnp.concatenate([f_itf_x[..., :-1, :], f_itf_x[..., 1:, :]], axis=-1)  # (3,6,ny,nx,2s)
         faces_y = jnp.concatenate([f_itf_y[..., :-1, :, :], f_itf_y[..., 1:, :, :]], axis=-1)
 
-        df = df + jnp.concatenate([faces_x, faces_y], axis=-1) @ CC
+        df = df + jnp.concatenate([faces_x, faces_y], axis=-1) @ k.CC
 
         # 6. Coriolis / Christoffel / topography-gradient forcing
         # (christoffel_1_22 and christoffel_2_11 vanish identically).
-        tz1 = dzdx1 if topo is not None else 0.0
-        tz2 = dzdx2 if topo is not None else 0.0
+        tz1 = k.dzdx1 if k.hsurf is not None else 0.0
+        tz2 = k.dzdx2 if k.hsurf is not None else 0.0
         forcing_1 = (
-            2.0 * (chr_1_01 * hu1 + chr_1_02 * hu2)
-            + chr_1_11 * hu1 * u1
-            + 2.0 * chr_1_12 * hu1 * u2
-            + GRAVITY * h * (h11 * tz1 + h12 * tz2)
+            2.0 * (k.chr_1_01 * hu1 + k.chr_1_02 * hu2)
+            + k.chr_1_11 * hu1 * u1
+            + 2.0 * k.chr_1_12 * hu1 * u2
+            + GRAVITY * h * (k.h11 * tz1 + k.h12 * tz2)
         )
         forcing_2 = (
-            2.0 * (chr_2_01 * hu1 + chr_2_02 * hu2)
-            + 2.0 * chr_2_12 * hu1 * u2
-            + chr_2_22 * hu2 * u2
-            + GRAVITY * h * (h21 * tz1 + h22 * tz2)
+            2.0 * (k.chr_2_01 * hu1 + k.chr_2_02 * hu2)
+            + 2.0 * k.chr_2_12 * hu1 * u2
+            + k.chr_2_22 * hu2 * u2
+            + GRAVITY * h * (k.h21 * tz1 + k.h22 * tz2)
         )
         forcing = jnp.stack([jnp.zeros_like(forcing_1), forcing_1, forcing_2])
 
-        return inv_sqrtG * (-df) - forcing
+        return k.inv_sqrtG * (-df) - forcing
 
-    if perturbation_base is not None:
-        # --- Perturbation-form (base-state-split) operator -----------------
-        # Base intermediates in float64 (one-time factory cost), cast to the
-        # working dtype; the runtime path evaluates only the TERM-LEVEL delta
-        # expansion below (see module docstring of the absolute form and the
-        # 3D twin models/euler_cubesphere.py _euler3d_rhs_core_pert).
-        f64 = jnp.float64
-        q0_64 = jnp.asarray(perturbation_base, f64)
-        EE64 = jnp.asarray(np.concatenate([ops.extrap_x, ops.extrap_z], axis=1), f64)
-        ny = nx = nel
-        h0_tot = q0_64[IDX_H] + jnp.asarray(topo.hsurf, f64) if topo is not None else q0_64[IDX_H]
-        itf0 = jnp.stack([h0_tot, q0_64[IDX_HU1], q0_64[IDX_HU2]]) @ EE64
-        itf_x0, itf_y0 = itf0[..., : 2 * s], itf0[..., 2 * s :]
-        hh0 = topology.halo_scalars(itf_x0[IDX_H], itf_y0[IDX_H])
-        uh0 = topology.halo_vectors(
-            itf_x0[IDX_HU1], itf_y0[IDX_HU1], itf_x0[IDX_HU2], itf_y0[IDX_HU2]
-        )
 
-        def halo_q0(side, shape):
-            return jnp.stack([hh0[side], uh0[side][0], uh0[side][1]]).reshape((3,) + shape)
-
-        qL_x0 = jnp.concatenate(
-            [halo_q0(WEST, (6, ny, 1, s)), itf_x0[..., s:].reshape(3, 6, ny, nx, s)], axis=-2
-        )
-        qR_x0 = jnp.concatenate(
-            [itf_x0[..., :s].reshape(3, 6, ny, nx, s), halo_q0(EAST, (6, ny, 1, s))], axis=-2
-        )
-        qL_y0 = jnp.concatenate(
-            [halo_q0(SOUTH, (6, 1, nx, s)), itf_y0[..., s:].reshape(3, 6, ny, nx, s)], axis=-3
-        )
-        qR_y0 = jnp.concatenate(
-            [itf_y0[..., :s].reshape(3, 6, ny, nx, s), halo_q0(NORTH, (6, 1, nx, s))], axis=-3
-        )
-        if topo is not None:
-            hs_ix = jnp.asarray(topo.hsurf_itf_x1, f64)
-            hs_jx = jnp.asarray(topo.hsurf_itf_x2, f64)
-            qL_x0 = qL_x0.at[IDX_H].add(-hs_ix)
-            qR_x0 = qR_x0.at[IDX_H].add(-hs_ix)
-            qL_y0 = qL_y0.at[IDX_H].add(-hs_jx)
-            qR_y0 = qR_y0.at[IDX_H].add(-hs_jx)
-
-        # f64 base RHS through the absolute operator (this factory, f64, XLA).
-        rhs64 = (
-            rhs
-            if dtype == f64
-            else make_rhs_shallow_water(geom, ops, metric, topo=topo, dtype=f64, interior="xla")
-        )
-        rhs0_64 = rhs64(q0_64)
-        rhs0 = c(rhs0_64)
-        q0c = c(q0_64)
-        h0 = q0c[IDX_H]
-        hu10, hu20 = q0c[IDX_HU1], q0c[IDX_HU2]
-        u10, u20 = c(q0_64[IDX_HU1] / q0_64[IDX_H]), c(q0_64[IDX_HU2] / q0_64[IDX_H])
-        Lx0, Rx0 = c(qL_x0), c(qR_x0)
-        Ly0, Ry0 = c(qL_y0), c(qR_y0)
-
-        def ausm_delta(qL0, qR0, dqL, dqR, sg, hd, ho, normal):
-            """Term-level delta of ``ausm_interface_flux`` around (qL0, qR0):
-            every product is expanded via d(ab) = da*b + a0*db (exact), the
-            sound speed via d(sqrt) = hd*g*dh/(a+a0), and the Mach ratios by
-            direct subtraction (smooth state ratios — no large-term
-            cancellation). Returns the interface-flux delta."""
-            hL0, hR0 = qL0[IDX_H], qR0[IDX_H]
-            dhL, dhR = dqL[IDX_H], dqR[IDX_H]
-            hL, hR = hL0 + dhL, hR0 + dhR
-            aL0 = jnp.sqrt(GRAVITY * hL0 * hd)
-            aR0 = jnp.sqrt(GRAVITY * hR0 * hd)
-            aL = jnp.sqrt(GRAVITY * hL * hd)
-            aR = jnp.sqrt(GRAVITY * hR * hd)
-            daL = jnp.where(aL + aL0 > 0.0, GRAVITY * hd * dhL / (aL + aL0), 0.0)
-            daR = jnp.where(aR + aR0 > 0.0, GRAVITY * hd * dhR / (aR + aR0), 0.0)
-            qn0L, qn0R = qL0[normal], qR0[normal]
-            tmpL0, tmpL = hL0 * aL0, hL * aL
-            tmpR0, tmpR = hR0 * aR0, hR * aR
-            mL0 = jnp.where(tmpL0 != 0.0, qn0L / tmpL0, 0.0)
-            mR0 = jnp.where(tmpR0 != 0.0, qn0R / tmpR0, 0.0)
-            mL = jnp.where(tmpL != 0.0, (qn0L + dqL[normal]) / tmpL, 0.0)
-            mR = jnp.where(tmpR != 0.0, (qn0R + dqR[normal]) / tmpR, 0.0)
-            dmL, dmR = mL - mL0, mR - mR0
-            M0 = 0.25 * ((mL0 + 1.0) ** 2 - (mR0 - 1.0) ** 2)
-            dM = 0.25 * ((mL + mL0 + 2.0) * dmL - (mR + mR0 - 2.0) * dmR)
-            M = M0 + dM
-            P0 = jnp.maximum(0.0, M0)
-            dP = jnp.maximum(0.0, M) - P0
-            N0 = jnp.minimum(0.0, M0)
-            dN = jnp.minimum(0.0, M) - N0
-            qL, qR = qL0 + dqL, qR0 + dqR
-            dflux = sg * (
-                dP * aL * qL + P0 * (daL * qL + aL0 * dqL)
-                + dN * aR * qR + N0 * (daR * qR + aR0 * dqR)
-            )
-            rows = (IDX_HU1, IDX_HU2) if normal == IDX_HU1 else (IDX_HU2, IDX_HU1)
-            dterm = (
-                dmL * hL**2 + (1.0 + mL0) * (hL + hL0) * dhL
-                - dmR * hR**2 + (1.0 - mR0) * (hR + hR0) * dhR
-            )
-            dpres = (0.25 * GRAVITY) * sg * dterm
-            dflux = dflux.at[rows[0]].add(hd * dpres)
-            dflux = dflux.at[rows[1]].add(ho * dpres)
-            return dflux
-
-        tz1 = dzdx1 if topo is not None else 0.0
-        tz2 = dzdx2 if topo is not None else 0.0
-
-        def rhs_delta_core(dq):
-            dh, dhu1, dhu2 = dq[IDX_H], dq[IDX_HU1], dq[IDX_HU2]
-            h = h0 + dh
-            du1 = (dhu1 - u10 * dh) / h
-            du2 = (dhu2 - u20 * dh) / h
-            u1, u2 = u10 + du1, u20 + du2
-
-            d_itf = dq @ EE  # extrapolation is linear; topography rides the base
-            d_itf_x, d_itf_y = d_itf[..., : 2 * s], d_itf[..., 2 * s :]
-            dhh = topology.halo_scalars(d_itf_x[IDX_H], d_itf_y[IDX_H])
-            duh = topology.halo_vectors(
-                d_itf_x[IDX_HU1], d_itf_y[IDX_HU1], d_itf_x[IDX_HU2], d_itf_y[IDX_HU2]
-            )
-
-            def dhalo(side, shape):
-                return jnp.stack([dhh[side], duh[side][0], duh[side][1]]).reshape((3,) + shape)
-
-            half_g = 0.5 * GRAVITY
-            hph0 = h + h0
-            dfx = jnp.stack(
-                [
-                    sqrtG * dhu1,
-                    sqrtG * (dhu1 * u1 + hu10 * du1 + half_g * h11 * hph0 * dh),
-                    sqrtG * (dhu2 * u1 + hu20 * du1 + half_g * h21 * hph0 * dh),
-                ]
-            )
-            dfy = jnp.stack(
-                [
-                    sqrtG * dhu2,
-                    sqrtG * (dhu1 * u2 + hu10 * du2 + half_g * h12 * hph0 * dh),
-                    sqrtG * (dhu2 * u2 + hu20 * du2 + half_g * h22 * hph0 * dh),
-                ]
-            )
-            ddf = jnp.concatenate([dfx, dfy], axis=-1) @ DD
-
-            dqL_x = jnp.concatenate(
-                [dhalo(WEST, (6, ny, 1, s)), d_itf_x[..., s:].reshape(3, 6, ny, nx, s)], axis=-2
-            )
-            dqR_x = jnp.concatenate(
-                [d_itf_x[..., :s].reshape(3, 6, ny, nx, s), dhalo(EAST, (6, ny, 1, s))], axis=-2
-            )
-            dqL_y = jnp.concatenate(
-                [dhalo(SOUTH, (6, 1, nx, s)), d_itf_y[..., s:].reshape(3, 6, ny, nx, s)], axis=-3
-            )
-            dqR_y = jnp.concatenate(
-                [d_itf_y[..., :s].reshape(3, 6, ny, nx, s), dhalo(NORTH, (6, 1, nx, s))], axis=-3
-            )
-
-            df_itf_x = ausm_delta(Lx0, Rx0, dqL_x, dqR_x, sqrtG_ix, h11_ix, h21_ix, IDX_HU1)
-            df_itf_y = ausm_delta(Ly0, Ry0, dqL_y, dqR_y, sqrtG_jx, h22_jx, h12_jx, IDX_HU2)
-            faces_x = jnp.concatenate([df_itf_x[..., :-1, :], df_itf_x[..., 1:, :]], axis=-1)
-            faces_y = jnp.concatenate([df_itf_y[..., :-1, :, :], df_itf_y[..., 1:, :, :]], axis=-1)
-            ddf = ddf + jnp.concatenate([faces_x, faces_y], axis=-1) @ CC
-
-            dforcing_1 = (
-                2.0 * (chr_1_01 * dhu1 + chr_1_02 * dhu2)
-                + chr_1_11 * (dhu1 * u1 + hu10 * du1)
-                + 2.0 * chr_1_12 * (dhu1 * u2 + hu10 * du2)
-                + GRAVITY * dh * (h11 * tz1 + h12 * tz2)
-            )
-            dforcing_2 = (
-                2.0 * (chr_2_01 * dhu1 + chr_2_02 * dhu2)
-                + 2.0 * chr_2_12 * (dhu1 * u2 + hu10 * du2)
-                + chr_2_22 * (dhu2 * u2 + hu20 * du2)
-                + GRAVITY * dh * (h21 * tz1 + h22 * tz2)
-            )
-            dforcing = jnp.stack([jnp.zeros_like(dforcing_1), dforcing_1, dforcing_2])
-            return inv_sqrtG * (-ddf) - dforcing
-
-        def rhs_pert(q: jnp.ndarray) -> jnp.ndarray:
-            return rhs0 + rhs_delta_core(q - q0c)
-
-        def rhs_delta(qprime: jnp.ndarray) -> jnp.ndarray:
-            """RHS at ``q0 + qprime`` with the perturbation passed directly
-            (full working-dtype resolution — no absolute-state quantization)."""
-            return rhs0 + rhs_delta_core(qprime)
-
-        rhs_pert.xla = rhs
-        rhs_pert.delta = rhs_delta
-        rhs_pert.base_state = q0c
-
-        from ..ops import pallas_sw as _psw
-
-        if not (use_pallas and topo is None):
-            return rhs_pert
-        if not _psw.supported(s, nel, dtype):
-            # Fused perturbation-form generic pipeline (pallas_sw_gen with
-            # base planes): packed states carry the PERTURBATION; pack/unpack
-            # shift by the base so integrators step the absolute trajectory
-            # (exact for any a + b = 1 stage combination).
-            from ..ops import pallas_sw_gen
-
-            genp = pallas_sw_gen.make_pipeline(
-                geom, ops, metric, topology, dtype=dtype,
-                perturbation=(q0_64, rhs0_64),
-            )
-            if genp is None:
-                return rhs_pert
-
-            def rhs_fast(q: jnp.ndarray) -> jnp.ndarray:
-                dqp = genp.pack((q - q0c).astype(dtype))
-                return genp.unpack(genp.packed(dqp)).reshape(q.shape)
-
-            def delta_fast(qprime: jnp.ndarray) -> jnp.ndarray:
-                return genp.unpack(genp.packed(genp.pack(qprime))).reshape(qprime.shape)
-
-            rhs_fast.xla = rhs_pert
-            rhs_fast.delta = delta_fast
-            rhs_fast.delta_xla = rhs_delta
-            rhs_fast.base_state = q0c
-            rhs_fast.pack = lambda q: genp.pack((q - q0c).astype(dtype))
-            rhs_fast.pack_delta = genp.pack
-            rhs_fast.unpack = lambda qp: q0c + genp.unpack(qp).reshape(q0c.shape)
-            rhs_fast.packed = genp.packed
-            rhs_fast.packed_stage = genp.packed_stage
-            rhs_fast.packed_stage_chained = genp.packed_stage_chained
-            rhs_fast.packed_slabs = genp.packed_slabs
-            return rhs_fast
-        # s=4-specialized shapes: fall through to the tuned pipeline below
-        # (km_fused / whole-run kr_run) with base planes threaded in.
-        pert = (q0_64, rhs0_64, q0c, rhs_pert, rhs_delta)
-    else:
-        pert = None
-
-    if not use_pallas or topo is not None:
+    rhs = Partial(rhs_fn, cst)
+    if perturbation_base is None:
         return rhs
 
-    # --- Pallas fast path (ops/pallas_sw.py): the whole spatial operator as
-    # two fused VMEM-resident kernels — K1 (extrapolation + pointwise flux +
-    # interior divergence + forcing) and K2 (AUSM interface fluxes + boundary
-    # correction for both directions). Only the tiny panel-edge halo stage
-    # runs in XLA between them; every array crossing a kernel boundary is
-    # bit-contiguous in the packed (rows, 128) layout, so no relayouts.
-    from ..ops import pallas_sw
+    # --- Perturbation-form (base-state-split) operator -----------------
+    # Base intermediates in float64 (one-time factory cost), cast to the
+    # working dtype; the runtime path evaluates only the TERM-LEVEL delta
+    # expansion below (see module docstring of the absolute form and the
+    # 3D twin models/euler_cubesphere.py _euler3d_rhs_core_pert).
+    f64 = jnp.float64
+    q0_64 = jnp.asarray(perturbation_base, f64)
+    EE64 = jnp.asarray(np.concatenate([ops.extrap_x, ops.extrap_z], axis=1), f64)
+    ny = nx = nel
+    h0_tot = q0_64[IDX_H] + jnp.asarray(topo.hsurf, f64) if topo is not None else q0_64[IDX_H]
+    itf0 = jnp.stack([h0_tot, q0_64[IDX_HU1], q0_64[IDX_HU2]]) @ EE64
+    itf_x0, itf_y0 = itf0[..., : 2 * s], itf0[..., 2 * s :]
+    hh0 = topology.halo_scalars(itf_x0[IDX_H], itf_y0[IDX_H])
+    uh0 = topology.halo_vectors(
+        itf_x0[IDX_HU1], itf_y0[IDX_HU1], itf_x0[IDX_HU2], itf_y0[IDX_HU2]
+    )
 
-    if not pallas_sw.supported(s, nel, dtype):
-        # Generic fused pipeline (ops/pallas_sw_gen.py): any num_solpts in
-        # 2..8 with a usable row packing — covers the canonical case6
-        # (s=3) and galewsky (s=7) discretizations the s=4-specialized
-        # module cannot.
-        from ..ops import pallas_sw_gen
+    def halo_q0(side, shape):
+        return jnp.stack([hh0[side], uh0[side][0], uh0[side][1]]).reshape((3,) + shape)
 
-        gen = pallas_sw_gen.make_pipeline(geom, ops, metric, topology, dtype=dtype)
-        if gen is None:
-            return rhs
+    qL_x0 = jnp.concatenate(
+        [halo_q0(WEST, (6, ny, 1, s)), itf_x0[..., s:].reshape(3, 6, ny, nx, s)], axis=-2
+    )
+    qR_x0 = jnp.concatenate(
+        [itf_x0[..., :s].reshape(3, 6, ny, nx, s), halo_q0(EAST, (6, ny, 1, s))], axis=-2
+    )
+    qL_y0 = jnp.concatenate(
+        [halo_q0(SOUTH, (6, 1, nx, s)), itf_y0[..., s:].reshape(3, 6, ny, nx, s)], axis=-3
+    )
+    qR_y0 = jnp.concatenate(
+        [itf_y0[..., :s].reshape(3, 6, ny, nx, s), halo_q0(NORTH, (6, 1, nx, s))], axis=-3
+    )
+    if topo is not None:
+        hs_ix = jnp.asarray(topo.hsurf_itf_x1, f64)
+        hs_jx = jnp.asarray(topo.hsurf_itf_x2, f64)
+        qL_x0 = qL_x0.at[IDX_H].add(-hs_ix)
+        qR_x0 = qR_x0.at[IDX_H].add(-hs_ix)
+        qL_y0 = qL_y0.at[IDX_H].add(-hs_jx)
+        qR_y0 = qR_y0.at[IDX_H].add(-hs_jx)
 
-        def rhs_gen(q: jnp.ndarray) -> jnp.ndarray:
-            return gen.unpack(gen.packed(gen.pack(q))).reshape(q.shape)
+    # f64 base RHS through the absolute operator (this factory, f64, XLA).
+    rhs64 = (
+        rhs
+        if dtype == f64
+        else make_rhs_shallow_water(geom, ops, metric, topo=topo, dtype=f64)
+    )
+    base = SWBase(
+        rhs0=c(rhs64(q0_64)), q0=c(q0_64),
+        u10=c(q0_64[IDX_HU1] / q0_64[IDX_H]), u20=c(q0_64[IDX_HU2] / q0_64[IDX_H]),
+        Lx0=c(qL_x0), Rx0=c(qR_x0), Ly0=c(qL_y0), Ry0=c(qR_y0),
+    )
 
-        rhs_gen.packed = gen.packed
-        rhs_gen.packed_stage = gen.packed_stage
-        rhs_gen.packed_stage_chained = gen.packed_stage_chained
-        rhs_gen.packed_slabs = gen.packed_slabs
-        rhs_gen.pack = gen.pack
-        rhs_gen.unpack = lambda qp: gen.unpack(qp)
-        return rhs_gen
+    def ausm_delta(qL0, qR0, dqL, dqR, sg, hd, ho, normal):
+        """Term-level delta of ``ausm_interface_flux`` around (qL0, qR0):
+        every product is expanded via d(ab) = da*b + a0*db (exact), the
+        sound speed via d(sqrt) = hd*g*dh/(a+a0), and the Mach ratios by
+        direct subtraction (smooth state ratios — no large-term
+        cancellation). Returns the interface-flux delta."""
+        hL0, hR0 = qL0[IDX_H], qR0[IDX_H]
+        dhL, dhR = dqL[IDX_H], dqR[IDX_H]
+        hL, hR = hL0 + dhL, hR0 + dhR
+        aL0 = jnp.sqrt(GRAVITY * hL0 * hd)
+        aR0 = jnp.sqrt(GRAVITY * hR0 * hd)
+        aL = jnp.sqrt(GRAVITY * hL * hd)
+        aR = jnp.sqrt(GRAVITY * hR * hd)
+        daL = jnp.where(aL + aL0 > 0.0, GRAVITY * hd * dhL / (aL + aL0), 0.0)
+        daR = jnp.where(aR + aR0 > 0.0, GRAVITY * hd * dhR / (aR + aR0), 0.0)
+        qn0L, qn0R = qL0[normal], qR0[normal]
+        tmpL0, tmpL = hL0 * aL0, hL * aL
+        tmpR0, tmpR = hR0 * aR0, hR * aR
+        mL0 = jnp.where(tmpL0 != 0.0, qn0L / tmpL0, 0.0)
+        mR0 = jnp.where(tmpR0 != 0.0, qn0R / tmpR0, 0.0)
+        mL = jnp.where(tmpL != 0.0, (qn0L + dqL[normal]) / tmpL, 0.0)
+        mR = jnp.where(tmpR != 0.0, (qn0R + dqR[normal]) / tmpR, 0.0)
+        dmL, dmR = mL - mL0, mR - mR0
+        M0 = 0.25 * ((mL0 + 1.0) ** 2 - (mR0 - 1.0) ** 2)
+        dM = 0.25 * ((mL + mL0 + 2.0) * dmL - (mR + mR0 - 2.0) * dmR)
+        M = M0 + dM
+        P0 = jnp.maximum(0.0, M0)
+        dP = jnp.maximum(0.0, M) - P0
+        N0 = jnp.minimum(0.0, M0)
+        dN = jnp.minimum(0.0, M) - N0
+        qL, qR = qL0 + dqL, qR0 + dqR
+        dflux = sg * (
+            dP * aL * qL + P0 * (daL * qL + aL0 * dqL)
+            + dN * aR * qR + N0 * (daR * qR + aR0 * dqR)
+        )
+        rows = (IDX_HU1, IDX_HU2) if normal == IDX_HU1 else (IDX_HU2, IDX_HU1)
+        dterm = (
+            dmL * hL**2 + (1.0 + mL0) * (hL + hL0) * dhL
+            - dmR * hR**2 + (1.0 - mR0) * (hR + hR0) * dhR
+        )
+        dpres = (0.25 * GRAVITY) * sg * dterm
+        dflux = dflux.at[rows[0]].add(hd * dpres)
+        dflux = dflux.at[rows[1]].add(ho * dpres)
+        return dflux
 
-    consts = pallas_sw.build_constants(ops, metric, nel, dtype=dtype)
-    rows = 6 * nel * nel // pallas_sw.G8
-    rpr = nel // pallas_sw.G8
-    rpad = -(-rpr // 8) * 8
-    npts = nel * s
-    interp = jax.default_backend() != "tpu"
-    # Fused halo-exchange kernel needs lane-tiled edges; other sizes keep
-    # the XLA exchange (one-hot matmuls, ~20 us/RHS of fixed op overhead).
-    halo_consts = pallas_sw.build_halo_constants(topology, dtype=dtype) if npts % 128 == 0 else None
+    def delta_core(k: SWConstants, b: SWBase, dq: jnp.ndarray) -> jnp.ndarray:
+        h0, hu10, hu20 = b.q0[IDX_H], b.q0[IDX_HU1], b.q0[IDX_HU2]
+        tz1 = k.dzdx1 if k.hsurf is not None else 0.0
+        tz2 = k.dzdx2 if k.hsurf is not None else 0.0
+        dh, dhu1, dhu2 = dq[IDX_H], dq[IDX_HU1], dq[IDX_HU2]
+        h = h0 + dh
+        du1 = (dhu1 - b.u10 * dh) / h
+        du2 = (dhu2 - b.u20 * dh) / h
+        u1, u2 = b.u10 + du1, b.u20 + du2
 
-    npl = -(-npts // 128) * 128
-
-    def _halo_from_slabs(we, ssl, nsl):
-        """Panel-edge halo stage on the edge-trace slabs (``ke_edges``
-        layout): builds the (hwe, hs, hn) arrays KM expands in VMEM."""
-        # Outgoing boundary traces (S, N, W, E) — every slice below touches
-        # a <=100 KB array (slicing the big trace array instead costs
-        # ~43 us/RHS in relayout copies).
-        west = we[:, :, 0:s].reshape(3, 6, npts)
-        east = we[:, :, 64 - s : 64].reshape(3, 6, npts)
-        sv = ssl.reshape(3, 6, rpad, 128)[:, :, :rpr, 64:]
-        nv = nsl.reshape(3, 6, rpad, 128)[:, :, rpad - rpr :, 64:]
-        south = sv.reshape(3, 6, rpr, 8, 2, s)[..., 0, :].reshape(3, 6, npts)
-        north = nv.reshape(3, 6, rpr, 8, 2, s)[..., 1, :].reshape(3, 6, npts)
-        pool = jnp.stack([south, north, west, east], axis=1)  # (3, 4, 6, npts)
-
-        # One batched exchange for all three variables, plus the 2x2
-        # panel-basis rotation of the momenta — as a single tiny Pallas
-        # kernel when the edge length is lane-tiled, else as XLA one-hot
-        # matmuls (every small XLA op costs ~2 us of fixed TPU overhead).
-        # hwe stays in the compact (3, 2, 6, npts) flat-edge layout; KM
-        # expands it to panel shape in VMEM (strided lane rotate). The old
-        # XLA-side (3,6,nel,32,4) pad+reshape cost a 16 us relayout copy
-        # per stage — a third of the whole RK3 step.
-        if halo_consts is not None:
-            hwe, hs, hn = pallas_sw.kh_exchange(pool, halo_consts, interpret=interp)
-        else:
-            ex = topology.exchange_pool(pool)  # (3, 4, 6, npts)
-            conv = jnp.asarray(topology._conv_contra_all, dtype=ex.dtype)
-            b1 = conv[..., 0, 0] * ex[IDX_HU1] + conv[..., 0, 1] * ex[IDX_HU2]
-            b2 = conv[..., 1, 0] * ex[IDX_HU1] + conv[..., 1, 1] * ex[IDX_HU2]
-            halo = jnp.stack([ex[IDX_H], b1, b2])  # (3, 4, 6, npts)
-            hwe = jnp.transpose(jnp.stack([halo[:, WEST], halo[:, EAST]], axis=1), (2, 0, 1, 3))
-            edge_pad = ((0, 0), (0, 0), (0, 0), (0, npl - npts))
-            hs = jnp.pad(halo[:, SOUTH].reshape(3, 6, 1, npts), edge_pad)
-            hn = jnp.pad(halo[:, NORTH].reshape(3, 6, 1, npts), edge_pad)
-        return hwe, hs, hn
-
-    bp = None
-    if pert is not None:
-        # Base planes for the perturbation-form kernels; the s=4/g=8 packing
-        # is identical to the generic pipeline's, so its builder serves both.
-        from ..ops import pallas_sw_gen as _psg
-
-        bp = _psg.build_base_planes(ops, metric, topology, pert[0], pert[1], nel, s, dtype)
-
-    def _km(qp, hwe, hs, hn, **kw):
-        return pallas_sw.km_fused(
-            qp, hwe, hs, hn, consts.fields, consts.gridrot, consts.eexy,
-            consts.dd, consts.m_sg, consts.m_hd, consts.m_ho, consts.wmat,
-            consts.spread, rpr=rpr, interpret=interp, bp=bp, **kw,
+        d_itf = dq @ k.EE  # extrapolation is linear; topography rides the base
+        d_itf_x, d_itf_y = d_itf[..., : 2 * s], d_itf[..., 2 * s :]
+        dhh = topology.halo_scalars(d_itf_x[IDX_H], d_itf_y[IDX_H])
+        duh = topology.halo_vectors(
+            d_itf_x[IDX_HU1], d_itf_y[IDX_HU1], d_itf_x[IDX_HU2], d_itf_y[IDX_HU2]
         )
 
-    def packed_slabs(qp):
-        """Edge-trace slabs of a packed state (chained-pipeline bootstrap)."""
-        return pallas_sw.ke_edges(qp, consts.eexy, rpr=rpr, interpret=interp)
+        def dhalo(side, shape):
+            return jnp.stack([dhh[side], duh[side][0], duh[side][1]]).reshape((3,) + shape)
 
-    def rhs_packed(qp: jnp.ndarray) -> jnp.ndarray:
-        """RHS on the packed (3, R, 128) layout — the fast path. All XLA ops
-        between the kernels touch only KB-sized edge arrays."""
-        hwe, hs, hn = _halo_from_slabs(*packed_slabs(qp))
-        return _km(qp, hwe, hs, hn)
-
-    def packed_stage(x, y, a: float, b: float, cdt) -> jnp.ndarray:
-        """One fused TVD-RK stage on packed states: a*x + b*y + cdt*RHS(y).
-        The whole spatial operator AND the stage combination run inside the
-        mega kernel's VMEM (reference rhs_sw.py + explicit-RK semantics)."""
-        hwe, hs, hn = _halo_from_slabs(*packed_slabs(y))
-        return _km(y, hwe, hs, hn, x=x, cdt=cdt, stage_a=float(a), stage_b=float(b))
-
-    def packed_stage_chained(x, y, slabs, a: float, b: float, cdt):
-        """Chained TVD-RK stage: consumes y's edge slabs from the PREVIOUS
-        stage's mega kernel and emits the output state's slabs, so the
-        steady-state time loop runs exactly one mega kernel + the tiny halo
-        stage per RK stage (no separate edge kernel). Returns (o, o_slabs).
-        Bootstrap the chain with ``packed_slabs``."""
-        hwe, hs, hn = _halo_from_slabs(*slabs)
-        o, *oslabs = _km(
-            y, hwe, hs, hn, x=x, cdt=cdt, stage_a=float(a), stage_b=float(b),
-            emit_slabs=True,
+        half_g = 0.5 * GRAVITY
+        hph0 = h + h0
+        dfx = jnp.stack(
+            [
+                k.sqrtG * dhu1,
+                k.sqrtG * (dhu1 * u1 + hu10 * du1 + half_g * k.h11 * hph0 * dh),
+                k.sqrtG * (dhu2 * u1 + hu20 * du1 + half_g * k.h21 * hph0 * dh),
+            ]
         )
-        return o, tuple(oslabs)
+        dfy = jnp.stack(
+            [
+                k.sqrtG * dhu2,
+                k.sqrtG * (dhu1 * u2 + hu10 * du2 + half_g * k.h12 * hph0 * dh),
+                k.sqrtG * (dhu2 * u2 + hu20 * du2 + half_g * k.h22 * hph0 * dh),
+            ]
+        )
+        ddf = jnp.concatenate([dfx, dfy], axis=-1) @ k.DD
 
-    def packed_run(qp, nsteps: int, abc):
-        """Run ``nsteps`` full 3-stage explicit RK steps as ONE kernel
-        (``pallas_sw.kr_run``): every stage of every step executes on-chip
-        with the RK registers, edge slabs and halos resident in VMEM —
-        steady-state HBM traffic is ~zero. ``abc``: (3,3) per-stage
-        (a, b, c*dt) rows (see ``pallas_sw.tvdrk3_abc``)."""
-        we0, s0, n0 = packed_slabs(qp)
-        return pallas_sw.kr_run(
-            qp, we0, s0, n0, consts.fields, consts.gridrot, consts.eexy,
-            consts.dd, consts.m_sg, consts.m_hd, consts.m_ho, consts.wmat,
-            consts.spread, halo_consts, abc, rpr=rpr, nsteps=nsteps,
-            interpret=interp, bp=bp,
+        dqL_x = jnp.concatenate(
+            [dhalo(WEST, (6, ny, 1, s)), d_itf_x[..., s:].reshape(3, 6, ny, nx, s)], axis=-2
+        )
+        dqR_x = jnp.concatenate(
+            [d_itf_x[..., :s].reshape(3, 6, ny, nx, s), dhalo(EAST, (6, ny, 1, s))], axis=-2
+        )
+        dqL_y = jnp.concatenate(
+            [dhalo(SOUTH, (6, 1, nx, s)), d_itf_y[..., s:].reshape(3, 6, ny, nx, s)], axis=-3
+        )
+        dqR_y = jnp.concatenate(
+            [d_itf_y[..., :s].reshape(3, 6, ny, nx, s), dhalo(NORTH, (6, 1, nx, s))], axis=-3
         )
 
-    if pert is not None:
-        # Packed states carry the PERTURBATION (at s=4/g=8 packing is a pure
-        # reshape, so pack/unpack just shift by the base); packed() returns
-        # the full RHS rhs0 + delta.
-        q0c_, rhs_pert_, rhs_delta_ = pert[2], pert[3], pert[4]
+        df_itf_x = ausm_delta(b.Lx0, b.Rx0, dqL_x, dqR_x, k.sqrtG_ix, k.h11_ix, k.h21_ix, IDX_HU1)
+        df_itf_y = ausm_delta(b.Ly0, b.Ry0, dqL_y, dqR_y, k.sqrtG_jx, k.h22_jx, k.h12_jx, IDX_HU2)
+        faces_x = jnp.concatenate([df_itf_x[..., :-1, :], df_itf_x[..., 1:, :]], axis=-1)
+        faces_y = jnp.concatenate([df_itf_y[..., :-1, :, :], df_itf_y[..., 1:, :, :]], axis=-1)
+        ddf = ddf + jnp.concatenate([faces_x, faces_y], axis=-1) @ k.CC
 
-        def rhs_fast(q: jnp.ndarray) -> jnp.ndarray:
-            return rhs_packed((q - q0c_).astype(dtype).reshape(3, rows, 128)).reshape(q.shape)
+        dforcing_1 = (
+            2.0 * (k.chr_1_01 * dhu1 + k.chr_1_02 * dhu2)
+            + k.chr_1_11 * (dhu1 * u1 + hu10 * du1)
+            + 2.0 * k.chr_1_12 * (dhu1 * u2 + hu10 * du2)
+            + GRAVITY * dh * (k.h11 * tz1 + k.h12 * tz2)
+        )
+        dforcing_2 = (
+            2.0 * (k.chr_2_01 * dhu1 + k.chr_2_02 * dhu2)
+            + 2.0 * k.chr_2_12 * (dhu1 * u2 + hu10 * du2)
+            + k.chr_2_22 * (dhu2 * u2 + hu20 * du2)
+            + GRAVITY * dh * (k.h21 * tz1 + k.h22 * tz2)
+        )
+        dforcing = jnp.stack([jnp.zeros_like(dforcing_1), dforcing_1, dforcing_2])
+        return k.inv_sqrtG * (-ddf) - dforcing
 
-        def delta_fast(qprime: jnp.ndarray) -> jnp.ndarray:
-            return rhs_packed(qprime.reshape(3, rows, 128)).reshape(qprime.shape)
+    def pert_fn(k: SWConstants, b: SWBase, q: jnp.ndarray) -> jnp.ndarray:
+        return b.rhs0 + delta_core(k, b, q - b.q0)
 
-        rhs_fast.xla = rhs_pert_
-        rhs_fast.delta = delta_fast
-        rhs_fast.delta_xla = rhs_delta_
-        rhs_fast.base_state = q0c_
-        rhs_fast.packed = rhs_packed
-        rhs_fast.packed_stage = packed_stage
-        rhs_fast.packed_stage_chained = packed_stage_chained
-        rhs_fast.packed_slabs = packed_slabs
-        if pallas_sw.run_supported(s, nel, dtype):
-            rhs_fast.packed_run = packed_run
-        rhs_fast.pack = lambda q: (q - q0c_).astype(dtype).reshape(3, rows, 128)
-        rhs_fast.pack_delta = lambda dq: dq.reshape(3, rows, 128)
-        rhs_fast.unpack = lambda qp: q0c_ + qp.reshape(3, 6, nel, nel, s * s)
-        return rhs_fast
+    def delta_fn(k: SWConstants, b: SWBase, qprime: jnp.ndarray) -> jnp.ndarray:
+        """RHS at ``q0 + qprime`` with the perturbation passed directly
+        (full working-dtype resolution — no absolute-state quantization)."""
+        return b.rhs0 + delta_core(k, b, qprime)
 
-    def rhs_pallas(q: jnp.ndarray) -> jnp.ndarray:
-        return rhs_packed(q.reshape(3, rows, 128)).reshape(q.shape)
-
-    rhs_pallas.packed = rhs_packed
-    rhs_pallas.packed_stage = packed_stage
-    rhs_pallas.packed_stage_chained = packed_stage_chained
-    rhs_pallas.packed_slabs = packed_slabs
-    if pallas_sw.run_supported(s, nel, dtype):  # implies halo_consts is built
-        rhs_pallas.packed_run = packed_run
-    rhs_pallas.pack = lambda q: q.reshape(3, rows, 128)
-    rhs_pallas.unpack = lambda qp: qp.reshape(3, 6, nel, nel, s * s)
-    return rhs_pallas
+    rhs_pert = Partial(pert_fn, cst, base)
+    rhs_pert.xla = rhs
+    rhs_pert.delta = Partial(delta_fn, cst, base)
+    rhs_pert.base_state = base.q0
+    return rhs_pert

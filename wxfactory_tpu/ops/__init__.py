@@ -1,40 +1,8 @@
-import os as _os
-
-import jax as _jax
-
-
-def kernel_precision():
-    """Precision for in-kernel (Mosaic) f32 dots. Mosaic's DEFAULT f32 dot
-    is a single bf16 MXU pass (~2e-3 relative input rounding) — enough to
-    turn near-balanced tendencies into noise AND to corrupt the one-hot
-    selection/placement GEMMs the packed layouts rely on. HIGHEST is the
-    full-f32 multi-pass lowering (~1.3e-7). Follows the same env knob as
-    the package-wide XLA default (WXF_MM_PRECISION). Mosaic has no HIGH
-    (bf16_3x) lowering — 'Unsupported dot precision: HIGH', verified on
-    this jaxlib — so anything but "default" means HIGHEST in-kernel
-    ("high" still gives the XLA-side GEMMs the 3-pass lowering). A manual
-    hi/lo bf16 split (3 DEFAULT dots) could emulate 3-pass in-kernel for
-    ~2x MXU throughput, but the measured kernels are not MXU-bound at the
-    benchmark shapes (1-9% MFU), so it is not worth the accuracy risk."""
-    if _os.environ.get("WXF_MM_PRECISION", "highest") == "default":
-        return _jax.lax.Precision.DEFAULT
-    return _jax.lax.Precision.HIGHEST
-
-
-def kernel_dot(a, b, dtype=None):
-    """jax.lax.dot at kernel_precision() with an f32 accumulator type."""
-    return _jax.lax.dot(
-        a, b, precision=kernel_precision(),
-        preferred_element_type=a.dtype if dtype is None else dtype,
-    )
-
-
 from .quadrature import gauss_legendre
 from .dfr import (
     DFROperators,
     check_skew_centrosymmetry,
     diffmat,
-    lagrange_eval,
     legendre_vandermonde,
     make_dfr_operators,
     make_filter_matrix,
@@ -46,7 +14,6 @@ __all__ = [
     "DFROperators",
     "check_skew_centrosymmetry",
     "diffmat",
-    "lagrange_eval",
     "legendre_vandermonde",
     "make_dfr_operators",
     "make_filter_matrix",

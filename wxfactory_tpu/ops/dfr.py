@@ -4,11 +4,11 @@ Capability parity with the reference's ``wx_factory/geometry/operators.py``
 (DFROperators): extrapolation of nodal values to element faces, interior
 derivative matrices, boundary-correction matrices, modal filters.
 
-TPU-first design: every spatial operator is expressed as a single dense
-matrix applied to the trailing ``solpts^d`` axis of the state, so each RHS
-stage is one large batched GEMM ``(B, s^d) @ (s^d, k)`` that XLA tiles onto
-the MXU. The 1D building blocks are computed symbolically on the host
-(sympy, ~34 digits) once at setup and Kronecker-lifted to 2D/3D.
+Design: every spatial operator is expressed as a single dense matrix
+applied to the trailing ``solpts^d`` axis of the state, so each RHS stage is
+one large batched GEMM ``(B, s^d) @ (s^d, k)``. The 1D building blocks are
+computed on the host in exact rational arithmetic from 34-digit nodes once
+at setup and Kronecker-lifted to 2D/3D.
 
 Element-internal node ordering (identical to the reference "new layout"):
 2D: index = kz * s + kx (x fastest); 3D: index = (kz * s + ky) * s + kx.
@@ -20,42 +20,38 @@ from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import Optional
 
+import math
+from fractions import Fraction
+
 import numpy as np
-import sympy
 
-from .quadrature import gauss_legendre, N_DIGITS
-
-
-def lagrange_poly(x: sympy.Symbol, i: int, points) -> sympy.Expr:
-    """Symbolic i-th Lagrange basis polynomial over the given points."""
-    return sympy.prod([(x - points[j]) / (points[i] - points[j]) for j in range(len(points)) if j != i])
+from .quadrature import gauss_legendre
 
 
-def lagrange_eval(points, new_pt) -> np.ndarray:
-    """Evaluate every Lagrange basis polynomial of `points` at `new_pt`."""
-    x = sympy.symbols("x")
-    n = len(points)
-    if n == 1:
-        return np.ones(1)
-    return np.array(
-        [float(lagrange_poly(x, i, points).evalf(20, subs={x: new_pt})) for i in range(n)], dtype=np.float64
-    )
+def diffmat(points) -> np.ndarray:
+    """Differentiation matrix D[j, i] = dL_i/dx at x_j over the given points.
 
-
-def diffmat(points_sym) -> np.ndarray:
-    """Differentiation matrix D[j, i] = dL_i/dx at x_j over the given (symbolic) points.
+    ``points`` are exact or high-precision numbers (ints, Decimals,
+    Fractions); the entries are evaluated exactly in rational arithmetic
+    from the barycentric form and rounded once to float64:
+    D[j, i] = (lam_i / lam_j) / (x_j - x_i) for j != i and
+    D[i, i] = sum_{k != i} 1 / (x_i - x_k), with lam_i = 1 / prod_{k != i} (x_i - x_k).
 
     Applied as ``f_nodes @ D.T`` -> derivative of the interpolant at the nodes.
     The result is skew-centrosymmetric for symmetric point sets; we enforce
-    that exactly (removes last-ulp asymmetry from the symbolic evaluation).
+    that exactly (removes last-ulp asymmetry from the final rounding).
     """
-    x = sympy.symbols("x")
-    m = len(points_sym)
+    x = [Fraction(p) for p in points]
+    m = len(x)
+    lam = [1 / math.prod((x[i] - x[k] for k in range(m) if k != i), start=Fraction(1)) for i in range(m)]
     D = np.zeros((m, m))
-    for i in range(m):
-        dL = sympy.diff(lagrange_poly(x, i, points_sym), x)
-        for j in range(m):
-            D[j, i] = float(dL.evalf(N_DIGITS, subs={x: points_sym[j]}))
+    for j in range(m):
+        for i in range(m):
+            if i == j:
+                d = sum((1 / (x[i] - x[k]) for k in range(m) if k != i), Fraction(0))
+            else:
+                d = (lam[i] / lam[j]) / (x[j] - x[i])
+            D[j, i] = float(d)
     # Enforce exact skew-centrosymmetry: D[i,j] == -D[n-1-i, n-1-j]
     D = 0.5 * (D - D[::-1, ::-1])
     return D
@@ -160,9 +156,9 @@ def make_dfr_operators(num_solpts: int, three_d: bool = False) -> DFROperators:
     extension points {-1} U nodes U {+1}, and boundary-correction columns.
     """
     s = num_solpts
-    pts_sym, pts, wts = gauss_legendre(s)
+    pts_hp, pts, wts = gauss_legendre(s)
     extension = np.concatenate(([-1.0], pts, [1.0]))
-    extension_sym = [sympy.Integer(-1)] + list(pts_sym) + [sympy.Integer(1)]
+    extension_hp = [-1] + pts_hp + [1]
 
     # Modal (Legendre) extrapolation of interior nodal values to the faces.
     v = legendre_vandermonde(pts, s - 1)
@@ -175,12 +171,12 @@ def make_dfr_operators(num_solpts: int, three_d: bool = False) -> DFROperators:
     feye[-1, -1] = 0.0
     highfilter = v @ feye @ inv_v
 
-    diff_ext = diffmat(extension_sym)
+    diff_ext = diffmat(extension_hp)
     if not check_skew_centrosymmetry(diff_ext):
         raise ValueError("DFR differentiation matrix lost skew-centrosymmetry")
     diff_solpt = np.ascontiguousarray(diff_ext[1:-1, 1:-1])
     correction = np.column_stack((diff_ext[1:-1, 0], diff_ext[1:-1, -1]))
-    diff = diffmat(pts_sym)
+    diff = diffmat(pts_hp)
 
     ident = np.eye(s)
 

@@ -3,11 +3,11 @@
 The reference scales out with one MPI process per cubed-sphere tile
 (process_topology.py:50-267 there) and gates every host-side effect on
 rank 0 (wx_mpi.py:16-165: SingleProcess/Conditional/do_once). The
-TPU-native equivalent is multi-controller JAX: every host runs the same
+JAX equivalent is multi-controller JAX: every host runs the same
 program, ``jax.distributed.initialize()`` stitches the per-host device sets
 into one global platform, the (panel, y, x) mesh simply spans all hosts'
-devices (GSPMD/shard_map collectives ride ICI within a slice and DCN
-across hosts), and rank-0 side effects become ``jax.process_index() == 0``
+devices (GSPMD/shard_map collectives ride the links within a host and
+the network across hosts), and rank-0 side effects become ``jax.process_index() == 0``
 guards. Nothing about the cube topology or the solver stack changes —
 the same jitted programs run on 1 process or N.
 

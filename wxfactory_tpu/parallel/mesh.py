@@ -2,15 +2,15 @@
 
 This is the piece that makes ``python -m wxfactory_tpu config.ini`` a
 DISTRIBUTED invocation, the way ``mpirun -n 6N^2 ./WxFactory config.ini`` is
-for the reference (/root/reference/WxFactory:102-105; one rank per tile,
-process_topology.py:69-94 there). TPU-natively there is no rank arithmetic:
+for the reference (WxFactory:102-105 there; one rank per tile,
+process_topology.py:69-94 there). Here there is no rank arithmetic:
 :class:`Simulation` calls :func:`build_mesh` once, places the state with
 :func:`shard_state`, and every jitted step program — explicit chains and the
 device-resident Krylov loops alike — partitions over the mesh via GSPMD
 (XLA inserts the halo/reduction collectives). Explicit cubed-sphere runs
 additionally get the hand-scheduled shard_map tile step (one device per
-cubed-sphere tile, edge-colored lax.ppermute halo rounds, optionally the
-fused Pallas tile kernel) through :class:`ShardMapTvdrk3`.
+cubed-sphere tile, edge-colored lax.ppermute halo rounds) through
+:class:`ShardMapTvdrk3`.
 
 Unlike the reference, which REQUIRES the PE count to match 6*N^2
 (simulation.py:209-230 there aborts otherwise), any device count works:
@@ -37,14 +37,15 @@ def _factor_rest(rest: int) -> Tuple[int, int]:
     return y, rest // y
 
 
-def build_mesh(n_devices: Optional[int] = None) -> Optional[Mesh]:
-    """A ('panel', 'y', 'x') mesh over the visible devices (None when there
-    is only one device: single-chip runs skip the partitioner entirely).
+def build_mesh(n_devices: Optional[int] = None, devices=None) -> Optional[Mesh]:
+    """A ('panel', 'y', 'x') mesh over ``devices`` (default: the visible
+    devices of the default backend); None when there is only one device:
+    single-device runs skip the partitioner entirely.
 
     6*N^2 devices (the reference's canonical PE counts) become the exact
     (6, N, N) tile mesh the shard_map paths need; any other count is
     factored as (gcd(n,6), y, x) for GSPMD."""
-    devices = jax.devices()
+    devices = list(jax.devices() if devices is None else devices)
     n = len(devices) if n_devices is None else n_devices
     if n <= 1:
         return None
@@ -100,8 +101,8 @@ def shard_state(q, sharding: NamedSharding):
 
 class ShardMapTvdrk3(Integrator):
     """TVD-RK3 through the hand-scheduled shard_map tile step (one device
-    per cubed-sphere tile, explicit edge-colored ppermute halo rounds;
-    fused Pallas tile kernel at f32). ``maker(dt) -> (step, sharding)``;
+    per cubed-sphere tile, explicit edge-colored ppermute halo rounds).
+    ``maker(dt) -> (step, sharding)``;
     compiled steps are cached per distinct dt (the t_end-clamped final
     step is the only second value a run produces)."""
 

@@ -18,7 +18,7 @@ no data-dependent control flow under jit.
 Issued before the interior flux GEMMs, the ppermutes overlap with interior
 compute under XLA's latency-hiding scheduler — the reference's
 start_communication / interior / end_communication overlap
-(rhs/rhs.py:94-105) expressed the TPU way.
+(rhs/rhs.py:94-105) expressed with JAX collectives.
 """
 
 from functools import partial
@@ -306,7 +306,7 @@ def make_shard_map_sw_step(
 # ---------------------------------------------------------------------------
 # General 6*N^2 decomposition: mesh ('panel', 'y', 'x') with y == x == N,
 # each device owning an (nel/N, nel/N)-element tile — the reference's
-# one-rank-per-tile strategy (process_topology.py:69-94) done the TPU way.
+# one-rank-per-tile strategy (process_topology.py:69-94) as a device mesh.
 #
 # Halo exchange = EIGHT lax.ppermute rounds over the flattened mesh:
 #   * four interior rounds, one per send side — cyclic shifts along the

@@ -1,17 +1,17 @@
-"""Cubed-sphere panel topology and halo exchange, TPU-native.
+"""Cubed-sphere panel topology and halo exchange.
 
 Capability parity with the reference's process_topology.py (ProcessTopology:
 panel adjacency, edge flips, contravariant/covariant vector conversion at
 panel edges, halo exchange of interface traces).
 
-TPU-first design — two departures from the reference:
+Design — two departures from the reference:
 
 1. **No ranks.** State is global, ``(nvar, 6, ny, nx, ...)``. The "exchange"
    is a pure function: for each of the 24 (panel, side) pairs it gathers the
    neighbor panel's boundary trace, flips it if the coordinate runs opposite,
    and rotates vector components into the local panel basis. Under ``jit``
    with the state sharded over (panel, y, x), XLA GSPMD lowers these static
-   gathers to collective-permutes over ICI; on one chip they are cheap
+   gathers to collective-permutes; on one device they are cheap
    copies. The reference's ``Ineighbor_alltoall`` + rank bookkeeping
    (process_topology.py:258-320) disappears entirely, as do gather_cube /
    distribute_cube (the global array IS the cube).
@@ -145,8 +145,8 @@ class CubedSphereTopology:
         # ONE take() on a stacked trace pool (sides x panels x npts), with
         # edge flips folded into the index table and the 2x2 vector
         # rotations stacked for a single vectorized multiply. This keeps the
-        # halo at ~10 HLO ops instead of ~150 tiny ones (TPU ops have ~1us
-        # fixed cost each).
+        # halo at ~10 HLO ops instead of ~150 tiny ones (each op has a
+        # fixed launch cost).
         npts = self.num_points
         src = np.empty((4, 6), dtype=np.int32)
         flips = np.empty((4, 6), dtype=bool)
@@ -181,18 +181,15 @@ class CubedSphereTopology:
         (S, N, W, E) side order: returns, for each (side, panel), the
         neighbor's facing trace in local edge ordering (flips applied).
 
-        Row-level take of 24 contiguous traces (never a lane-axis gather —
-        those hit the TPU scalar core) + a vectorized flip select. Callers
-        that already hold the boundary traces in a custom layout (e.g. the
-        fused Pallas pipeline) build the pool themselves; `_gather_halo`
-        builds it from interface arrays.
+        Row-level take of 24 contiguous traces + a vectorized flip select.
+        Callers that already hold the boundary traces in a custom layout
+        build the pool themselves; `_gather_halo` builds it from interface
+        arrays.
         """
         flat = pool.reshape(pool.shape[:-3] + (24, self.num_points))
         # Both the 24-row neighbor permutation and the edge reversal run as
-        # one-hot matmuls: row gathers and lane-axis flips lower to
-        # scalar-core loops on TPU (tens of us even for these KB-sized
-        # arrays), while the MXU does either exactly (each output sums a
-        # single 1.0*x term).
+        # one-hot matmuls, which are exact (each output sums a single 1.0*x
+        # term) and avoid small gather/reverse ops.
         perm = np.zeros((24, 24))
         perm[np.arange(24), self._edge_src] = 1.0
         sel = jnp.asarray(perm, dtype=flat.dtype) @ flat
@@ -291,8 +288,7 @@ class CubedSphereTopology:
         reference's flip_dim=(-3, -1)) applied.
 
         Like `exchange_pool`, both the 24-row neighbor permutation and the
-        flip run as one-hot matmuls so nothing touches the TPU scalar core;
-        the batched leading dims let callers exchange all variables at once.
+        flip run as one-hot matmuls; the batched leading dims let callers exchange all variables at once.
         """
         s = self.geom.num_solpts
         ss = s * s

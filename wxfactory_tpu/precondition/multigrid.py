@@ -94,7 +94,7 @@ def cubed_sphere_sw_levels(geom) -> tuple:
         g = make_cubed_sphere_2d(geom.num_elements, p, geom.lambda0, geom.phi0, geom.alpha0)
         ops = make_dfr_operators(p)
         metric = make_metric_2d(g)
-        return make_rhs_shallow_water(g, ops, metric, interior="xla")
+        return make_rhs_shallow_water(g, ops, metric)
 
     return make, 2, 2
 
@@ -148,8 +148,7 @@ def dg_fv_transfer(num_solpts: int, n_cells: int):
 
 def cubed_sphere_sw_fv_mg_levels(geom, num_solpts: int, max_levels: int = 8):
     """FV-agglomeration multigrid family for cubed-sphere shallow water
-    (reference precondition/multigrid.py:297-339, discretization='fv' —
-    VERDICT r2 item 5):
+    (reference precondition/multigrid.py:297-339, discretization='fv'):
 
     * level 0: the DG(s) operator on the nel-element grid;
     * level 1: the SAME RHS machinery at num_solpts=1 (pure FV: zero
@@ -172,7 +171,7 @@ def cubed_sphere_sw_fv_mg_levels(geom, num_solpts: int, max_levels: int = 8):
         g = make_cubed_sphere_2d(nel * c, 1, geom.lambda0, geom.phi0, geom.alpha0)
         ops1 = make_dfr_operators(1)
         metric1 = make_metric_2d(g)
-        return make_rhs_shallow_water(g, ops1, metric1, interior="xla")
+        return make_rhs_shallow_water(g, ops1, metric1)
 
     levels: List[MultigridLevel] = []
     restricts = []
@@ -183,7 +182,7 @@ def cubed_sphere_sw_fv_mg_levels(geom, num_solpts: int, max_levels: int = 8):
         g0 = make_cubed_sphere_2d(nel, s, geom.lambda0, geom.phi0, geom.alpha0)
         m0 = make_metric_2d(g0)
         levels.append(
-            MultigridLevel(make_rhs_shallow_water(g0, _mk(s), m0, interior="xla"), s)
+            MultigridLevel(make_rhs_shallow_water(g0, _mk(s), m0), s)
         )
         r1, p1 = dg_fv_transfer(s, sp)
         # Trailing s^2 point/cell order is (y-major, x-minor), as in the

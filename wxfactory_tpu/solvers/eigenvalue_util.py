@@ -5,7 +5,7 @@ Capability parity with the reference's solvers/eigenvalue_util.py
 matrix-free operator column by column and compute/save its spectrum — used
 to study integrator stability regions for a given RHS.
 
-TPU-native twist: the columns come from one jitted jvp program evaluated
+JAX twist: the columns come from one jitted jvp program evaluated
 at the basis vectors (vmapped in chunks), not finite differences.
 """
 

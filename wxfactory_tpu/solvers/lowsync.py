@@ -26,7 +26,7 @@ to reach ONE global reduction per Arnoldi iteration:
 plus ``neiop`` — the norm estimate over an incomplete-orthogonalization
 window (iop=2), the reference's icwy_neiop.py / kiops_nest.py structure.
 
-On TPU the "1 sync" property translates to a single fused collective per
+On a device mesh the "1 sync" property translates to a single fused collective per
 Krylov iteration under GSPMD — the Gram product is one matmul + psum. The
 module counts its global reductions (NUM_REDUCTIONS) so tests can assert
 the per-iteration budget of each variant.

@@ -2,7 +2,7 @@
 
 The reference approximates J(Q)·v with a complex-step or finite-difference
 RHS evaluation (solvers/matvec.py:36-88 there) — which is why its whole C++
-kernel stack is templated on complex<double>. On TPU we use exact
+kernel stack is templated on complex<double>. Here we use exact
 forward-mode AD (`jax.jvp`), which is cheaper than complex arithmetic, exact
 to machine precision, and removes the need for complex kernels entirely.
 An FD variant is kept as a parity/debug mode.

@@ -2,7 +2,7 @@
 
 Capability parity with the reference's solvers/nonlin.py:12-218 (scipy-style
 newton_krylov with an FGMRES inner solve, Armijo line search, and
-Eisenstat-Walker forcing). TPU-native difference: the Jacobian action is an
+Eisenstat-Walker forcing). Design difference: the Jacobian action is an
 exact jax.jvp of the residual function instead of a finite-difference
 directional derivative.
 """

@@ -10,7 +10,7 @@ the low-synchronization Krylov scaling studies —
   3. Porous medium:   u_t = lap(u^2) + alpha * adv(u)            (periodic)
   4. Burgers:         u_t = eps * lap(u) - alpha * (u^2/2)_adv   (Dirichlet)
 
-TPU-first design: the reference hand-rolls per-point loops with MPI halo
+Design: the reference hand-rolls per-point loops with MPI halo
 Send/Recv per direction (JTV.py, 1363 LoC); here each operator is a
 padded-stencil jnp expression on the full (N, N) grid — one fused XLA
 kernel, distributed by sharding the grid axes. The Jacobian action needs
